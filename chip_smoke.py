@@ -10,8 +10,13 @@ Phases (each prints one JSON line):
 2. build — the CUDA kernels built from ``sln_amodal_tpu_torch/csrc`` with
    nvcc (one process per source, all started together).
 3. kernels — each kernel held against its plain PyTorch version on the card
-   at the main path's shapes with seeded inputs (NMS: keeps equal;
-   RoIAlign: max |diff| <= 1e-5, exact in practice), and their median times.
+   at the main path's shapes with seeded inputs, bit for bit (NMS: keeps
+   equal; RoIAlign: ``torch.equal``). ``ms`` is the median time of one
+   wrapper call between CUDA events (the host's work before the launch
+   included); ``device_ms`` the mean device time of the wrapper's kernels
+   per call from ``torch.profiler``, which also gives each NMS pass
+   (``pass_ms``) and shows the RoIAlign wrapper is one launch per call;
+   ``host_us`` the wrapper's host time per call, enqueued back to back.
 4. main path — ``Detector.detect`` on 2 seeded 1024² images at the full
    width of the one supported model (ResNet-101-FPN, DeepLabV2-MSC GLM at
    513², 6000 -> 1000 proposals, 100 detections), float32, random seeded
@@ -65,6 +70,43 @@ def cuda_ms(fn, repeats: int) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, repeats: int) -> float:
+    """Host microseconds per call of ``fn`` enqueued back to back (no
+    synchronize between calls): the work before each launch. Keep
+    ``repeats`` small, so the launch queue never fills and throttles the
+    host to the device's pace."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    us = (time.perf_counter() - t) / repeats * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_kernels(fn, repeats: int) -> dict:
+    """{kernel name: (mean device ms, launches) per call} of ``fn`` over
+    ``repeats`` calls, from ``torch.profiler``, after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    ms, launches = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms[e.name] = ms.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+            launches[e.name] = launches.get(e.name, 0) + 1
+    if not ms:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return {name: (ms[name] / repeats, launches[name] / repeats) for name in ms}
+
+
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -106,6 +148,10 @@ def check_nms(dev):
     if not (torch.equal(keep, keep_p) and torch.equal(keep_valid, valid_p)):
         raise AssertionError("NMS kernel keeps differ from the plain version")
     ms = cuda_ms(lambda: nms_sorted_batched(boxes, valid, max_out, thr), 20)
+    by_kernel = device_kernels(lambda: nms_sorted_batched(boxes, valid, max_out, thr), 20)
+    passes = {p: sum(t for name, (t, _) in by_kernel.items() if p in name)
+              for p in ("nms_mask_kernel", "nms_scan_kernel")}
+    passes["other_kernels"] = sum(t for t, _ in by_kernel.values()) - sum(passes.values())
     plain_ms = cuda_ms(lambda: nms_sorted_batched_plain(boxes, valid, max_out, thr), 3)
     # what the greedy needs: each kept box against every later box
     kept = keep[keep_valid].long()
@@ -113,7 +159,10 @@ def check_nms(dev):
     nbytes = b * n * (16 + 1) + b * max_out * (4 + 1)
     bound_ms, bound_by = bound(nbytes, pairs * IOU_FLOPS)
     out = dict(shape=[b, n, max_out], threshold=thr, kept=int(keep_valid.sum()),
-               keeps_equal=True, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               keeps_equal=True, max_abs_err=0.0, ms=ms, pass_ms=passes,
+               device_ms=sum(t for t, _ in by_kernel.values()),
+               host_us=host_us(lambda: nms_sorted_batched(boxes, valid, max_out, thr), 30),
+               plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by)
     emit({"phase": "kernel", "name": "nms", **out})
     return out
@@ -128,7 +177,7 @@ def check_roi_align(dev):
     feats = [torch.randn((b, s, s, c), generator=gen).to(dev) for s in (256, 128, 64, 32)]
     shapes = [tuple(f.shape[1:]) for f in feats]
     rng = np.random.RandomState(2)
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, geometry_ms=0.0, max_abs_err=0.0)
+    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
     per_shape = []
     for pool, n in ((7, 1000), (16, 100)):
         boxes = roi_boxes(rng, b, n).to(dev)
@@ -137,14 +186,17 @@ def check_roi_align(dev):
         ref = pyramid_roi_align_plain(*args)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        if not err <= 1e-5:
-            raise AssertionError(f"RoIAlign pool {pool}: max |diff| {err} > 1e-5")
+        if not torch.equal(out, ref):
+            raise AssertionError(f"RoIAlign pool {pool}: differs from the plain version "
+                                 f"(max |diff| {err})")
         ms = cuda_ms(lambda: pyramid_roi_align(*args), 20)
         plain_ms = cuda_ms(lambda: pyramid_roi_align_plain(*args), 5)
-        geometry_ms = cuda_ms(
-            lambda: sample_geometry(shapes, boxes.reshape(-1, 4), (pool, pool), (1024, 1024)), 20)
+        # the wrapper is one device kernel per call, and nothing else
+        by_kernel = device_kernels(lambda: pyramid_roi_align(*args), 10)
+        if [n_ for _, n_ in by_kernel.values()] != [1.0]:
+            raise AssertionError(f"RoIAlign wrapper launches {by_kernel}")
         # bytes this run's data needs: the distinct feature rows its valid
-        # samples touch, the geometry, the output
+        # samples touch, each box once, the output
         (lvl, vy, vx, top, bottom, _, left, right, _) = sample_geometry(
             shapes, boxes.reshape(-1, 4), (pool, pool), (1024, 1024))
         level_base = torch.tensor([0] + list(np.cumsum([s[0] * s[1] for s in shapes])[:-1]),
@@ -159,14 +211,15 @@ def check_roi_align(dev):
                 rows.append(idx[vy[:, :, None] & vx[:, None, :]])
         touched = int(torch.unique(torch.cat(rows)).numel())
         out_elems = b * n * pool * pool * c
-        nbytes = touched * c * 4 + b * n * (4 + 2 * pool * 13) + out_elems * 4
+        nbytes = touched * c * 4 + b * n * 16 + out_elems * 4
         bound_ms, bound_by = bound(nbytes, out_elems * LERP_FLOPS)
         shape = dict(pool=pool, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     geometry_ms=geometry_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     touched_rows=touched)
+                     device_ms=sum(t for t, _ in by_kernel.values()),
+                     host_us=host_us(lambda: pyramid_roi_align(*args), 30),
+                     bound_ms=bound_ms, bound_by=bound_by, touched_rows=touched)
         emit({"phase": "kernel", "name": "roi_align", **shape})
         per_shape.append(shape)
-        for k in ("ms", "plain_ms", "bound_ms", "geometry_ms"):
+        for k in ("ms", "device_ms", "plain_ms", "bound_ms"):
             total[k] += shape[k]
         total["max_abs_err"] = max(total["max_abs_err"], err)
     total["bound_by"] = "bytes" if all(s["bound_by"] == "bytes" for s in per_shape) else "operations"
@@ -296,13 +349,13 @@ def main() -> int:
          "replaces": "sln_amodal_tpu/ops/nms_pallas.py:60",
          "launches": path["launches"]["nms"], "max_abs_err": nms["max_abs_err"],
          "ms": nms["ms"], "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
-         "bound_by": nms["bound_by"], "library_ms": None},
+         "bound_by": nms["bound_by"], "library_ms": None, "device_ms": nms["device_ms"]},
         {"name": "pyramid_roi_align", "route": "cuda",
          "source": "sln_amodal_tpu_torch/csrc/roi_align.cu",
          "replaces": "sln_amodal_tpu/ops/roi_patch_pallas.py:59",
          "launches": path["launches"]["roi_align"], "max_abs_err": roi["max_abs_err"],
          "ms": roi["ms"], "plain_ms": roi["plain_ms"], "bound_ms": roi["bound_ms"],
-         "bound_by": roi["bound_by"], "library_ms": None},
+         "bound_by": roi["bound_by"], "library_ms": None, "device_ms": roi["device_ms"]},
     ]
     emit({"kernels": kernels})
     print(smi)

@@ -9,6 +9,7 @@ source is never served by a stale library.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -58,6 +59,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._lib = None
+        self._fns = {}
         self._lock = threading.Lock()
 
     @property
@@ -92,9 +94,18 @@ class CudaKernel:
             raise RuntimeError(f"nvcc failed for {self.source.name}:\n{log}")
         os.replace(tmp, self.library_path)
 
-    def call(self, name: str, *args) -> None:
-        """Call C entry point ``name``; raise if its launch failed."""
-        err = getattr(self.lib(), name)(*args)
+    def launch(self, name: str, device, *args) -> None:
+        """Call C entry point ``name`` with ``args`` and, last, the current
+        stream of CUDA ``device``; raise if its launch failed."""
+        import torch
+
+        fn = self._fns.get(name)
+        if fn is None:
+            fn = self._fns[name] = getattr(self.lib(), name)
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        with contextlib.nullcontext() if index == current else torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             raise RuntimeError(
                 f"{self.source.name}:{name} launch failed with cudaError {err}")

@@ -47,25 +47,25 @@ def nms_sorted_batched(
         raise ValueError(f"boxes must be float32 or float64, got {boxes.dtype}")
     b, n = boxes.shape[:2]
     dev = boxes.device
-    # the reference casts the boxes to float32 whatever their dtype
+    # the reference casts the boxes to float32 whatever their dtype; the
+    # kernel reads each box as one 16-byte load
     boxes32 = boxes.to(torch.float32).contiguous()
-    valid8 = valid.to(torch.uint8).contiguous()
+    if boxes32.data_ptr() % 16:
+        boxes32 = boxes32.clone()
+    valid = valid.contiguous()
     col_blocks = (n + 63) // 64
-    mask = torch.empty((b, n, col_blocks), dtype=torch.int64, device=dev)
+    mask = torch.empty((b, col_blocks, (col_blocks + 1) * 64), dtype=torch.int64, device=dev)
     keep = torch.empty((b, max_outputs), dtype=torch.int32, device=dev)
-    keep_valid = torch.empty((b, max_outputs), dtype=torch.uint8, device=dev)
+    keep_valid = torch.empty((b, max_outputs), dtype=torch.bool, device=dev)
     if b == 0 or max_outputs == 0:
-        return keep, keep_valid.bool()
+        return keep, keep_valid
     if n == 0:
         keep.fill_(pad_value)
         keep_valid.zero_()
-        return keep, keep_valid.bool()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        NMS_KERNEL.call(
-            "nms_sorted_batched", boxes32.data_ptr(), valid8.data_ptr(), b, n,
-            max_outputs, float(iou_threshold), int(suppress_at_equal),
-            int(pad_value), mask.data_ptr(), keep.data_ptr(),
-            keep_valid.data_ptr(), stream)
+        return keep, keep_valid
+    NMS_KERNEL.launch(
+        "nms_sorted_batched", dev, boxes32.data_ptr(), valid.data_ptr(), b, n,
+        max_outputs, float(iou_threshold), int(suppress_at_equal), int(pad_value),
+        mask.data_ptr(), keep.data_ptr(), keep_valid.data_ptr())
     NMS_KERNEL.launches += 1
-    return keep, keep_valid.bool()
+    return keep, keep_valid

@@ -5,9 +5,9 @@ JAX package's ``ops/roi_align.py``: normalized (y1, x1, y2, x2) boxes, sample
 coordinates scaled by ``(dim - 1)``, bilinear interpolation, the
 extrapolation value outside the map. FPN levels follow the FPN paper's rule.
 
-- :func:`sample_geometry` — the per-sample geometry shared by the plain
-  version and the CUDA kernel (``csrc/roi_align.cu``), so the two differ only
-  in how they gather.
+- :func:`sample_geometry` — the per-sample geometry of the plain version;
+  the CUDA kernel (``csrc/roi_align.cu``) computes the same geometry itself,
+  bit for bit as the card computes these PyTorch ops.
 - :func:`pyramid_roi_align_plain` — port of ``pyramid_roi_align_gather_batched``,
   the exact oracle of the TPU RoIAlign kernel.
 - :func:`crop_and_resize` — single-map crop (the GLM-prior crop of the mask

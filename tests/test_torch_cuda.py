@@ -5,6 +5,8 @@ file imports neither JAX nor the JAX package, so it runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,8 @@ from sln_amodal_tpu_torch.infer import Detector
 from sln_amodal_tpu_torch.ops.nms import nms_sorted_batched_plain
 from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL, nms_sorted_batched
 from sln_amodal_tpu_torch.ops.roi_align import pyramid_roi_align_plain
-from sln_amodal_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_KERNEL, pyramid_roi_align
+from sln_amodal_tpu_torch.ops.roi_align_cuda import (
+    ROI_ALIGN_KERNEL, level_scale_reciprocal, pyramid_roi_align)
 from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -31,17 +34,36 @@ def cluster_boxes(rng, n, centers=8, jitter=40.0):
     return b.astype(np.float32)
 
 
-@pytest.mark.parametrize("n,max_out,thr,at_equal", [
-    (6000, 1000, 0.7, False),     # the proposal shape
-    (6000, 1000, 0.5, True),
-    (130, 200, 0.3, False),       # ragged last word, fewer boxes than slots
-    (1, 4, 0.7, False),
+def sparse_boxes(rng, n):
+    """Disjoint boxes on a grid (cells 12 px apart, boxes 4 px wide):
+    nothing is suppressed, so keeps are 0, 1, 2, ... in order."""
+    cell = np.arange(n)
+    y, x = (cell // 100) * 12.0, (cell % 100) * 12.0
+    b = np.stack([y, x, y + 4, x + 4], 1) + rng.uniform(0, 2, (n, 1))
+    return b.astype(np.float32)
+
+
+@pytest.mark.parametrize("n,max_out,thr,at_equal,layout", [
+    (6000, 1000, 0.7, False, "cluster"),    # the proposal shape
+    (6000, 1000, 0.5, True, "cluster"),
+    (130, 200, 0.3, False, "cluster"),      # ragged last word, fewer boxes than slots
+    (1, 4, 0.7, False, "cluster"),
+    (6000, 100, 0.7, False, "sparse"),      # max_out reached in the middle of word 1
+    (6000, 1000, 0.7, False, "sparse"),     # nothing suppressed: stops in word 15
+    (6000, 1000, 0.7, False, "invalid_image"),  # image 1 has no valid box
+    (63, 64, 0.5, False, "cluster"),
+    (64, 64, 0.5, False, "cluster"),
+    (65, 64, 0.5, False, "cluster"),
+    (65, 80, 0.5, False, "sparse"),
 ])
-def test_nms_kernel_matches_plain(cuda_device, n, max_out, thr, at_equal):
+def test_nms_kernel_matches_plain(cuda_device, n, max_out, thr, at_equal, layout):
     rng = np.random.RandomState(n)
-    boxes = torch.from_numpy(np.stack([cluster_boxes(rng, n) for _ in range(2)]))
+    make = sparse_boxes if layout == "sparse" else cluster_boxes
+    boxes = torch.from_numpy(np.stack([make(rng, n) for _ in range(2)]))
     valid = torch.from_numpy(rng.rand(2, n) > 0.05)
-    if n < 10:
+    if layout == "sparse":
+        valid[:] = True
+    if n < 10 or layout == "invalid_image":
         valid[1] = False
     args = (boxes.to(cuda_device), valid.to(cuda_device), max_out, thr)
     before = NMS_KERNEL.launches
@@ -51,12 +73,14 @@ def test_nms_kernel_matches_plain(cuda_device, n, max_out, thr, at_equal):
     torch.cuda.synchronize()
     assert torch.equal(v, v_ref)
     assert torch.equal(k, k_ref)
+    if layout == "sparse":
+        kept = min(n, max_out)
+        assert torch.equal(k[0, :kept].cpu(), torch.arange(kept, dtype=torch.int32))
 
 
-def _pyramid(b, c, dtype, seed=0):
+def _pyramid(b, c, dtype, seed=0, sizes=(256, 128, 64, 32)):
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn((b, s, s, c), generator=g).to("cuda", dtype)
-            for s in (256, 128, 64, 32)]
+    return [torch.randn((b, s, s, c), generator=g).to("cuda", dtype) for s in sizes]
 
 
 def _boxes(b, n, seed=1):
@@ -71,18 +95,96 @@ def _boxes(b, n, seed=1):
     return torch.from_numpy(boxes)
 
 
+def _level_boundary_boxes(dtype):
+    """Square boxes whose sqrt(hw) is 224/1024 * 2^k (integer levels) or
+    224/1024 * 2^(k + 1/2) (where round() turns), each also one ulp of the
+    box dtype either side, on y2 and on x2."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    sides = 224.0 / 1024.0 * 2.0 ** np.array([-2, -1.5, -1, -0.5, 0, 0.5, 1, 1.5, 2])
+    rows = []
+    for side in sides.astype(npdt):
+        for d in (-1, 0, 1):
+            s = side if d == 0 else np.nextafter(side, npdt(d * np.inf))
+            rows += [[0, 0, s, side], [0, 0, side, s], [0.1, 0.2, 0.1 + s, 0.2 + s]]
+    return torch.from_numpy(np.array(rows, dtype=npdt)[None].repeat(2, 0))
+
+
+def _roi_case(case, dtype):
+    """(levels, boxes [2, N, 4], crop, image shape) of one kernel case."""
+    image = (1024, 1024)
+    if case == "pool7":
+        return _pyramid(2, 256, dtype), _boxes(2, 1000), (7, 7), image
+    if case == "pool16":
+        return _pyramid(2, 256, dtype), _boxes(2, 100), (16, 16), image
+    if case == "level_boundaries":
+        return _pyramid(2, 64, dtype), _level_boundary_boxes(dtype), (7, 7), image
+    if case == "integer_samples":
+        # one level 257 wide (dim - 1 = 256), pool 5 (recip 1/4 exact):
+        # samples land on integers and on dim - 1 exactly
+        edges = np.array([[0, 0, 1, 1], [0, 0, 0.5, 0.25], [0.25, 0.5, 1, 1],
+                          [1 / 256, 2 / 256, 9 / 256, 6 / 256], [0.75, 0.75, 1, 1],
+                          [0, 0.5, 1 + 4 / 256, 1]])
+        return (_pyramid(2, 16, dtype, sizes=(257,)),
+                torch.from_numpy(edges[None].repeat(2, 0)), (5, 5), image)
+    if case == "crop_1x1":
+        return _pyramid(2, 32, dtype), _boxes(2, 50), (1, 1), image
+    if case in ("one_level", "two_levels", "three_levels"):
+        k = ("one_level", "two_levels", "three_levels").index(case) + 1
+        return (_pyramid(2, 24, dtype, sizes=(64, 32, 16)[:k]), _boxes(2, 60), (7, 7),
+                (256, 256))
+    if case == "outside":
+        # entirely outside the image on each side, and straddling it
+        edges = np.array([[1.2, 0.1, 1.5, 0.4], [-0.6, 0.1, -0.2, 0.4],
+                          [0.1, 1.1, 0.4, 1.3], [0.1, -0.5, 0.4, -0.1],
+                          [-0.3, -0.3, 1.3, 1.3], [1.5, 1.5, 2.5, 2.5]])
+        return (_pyramid(2, 256, dtype), torch.from_numpy(edges[None].repeat(2, 0)),
+                (7, 7), image)
+    if case == "empty":
+        return _pyramid(2, 256, dtype), torch.zeros((2, 0, 4), dtype=torch.float64), (7, 7), image
+    raise ValueError(case)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("pool,n", [(7, 1000), (16, 100)])
-def test_roi_align_kernel_matches_plain(cuda_device, dtype, pool, n):
-    """Exact: same geometry, same lerp order, no contraction on either side."""
-    feats = _pyramid(2, 256, dtype)
-    boxes = _boxes(2, n).to(cuda_device, dtype)
+@pytest.mark.parametrize("case", ["pool7", "pool16", "level_boundaries", "integer_samples",
+                                  "crop_1x1", "one_level", "two_levels", "three_levels",
+                                  "outside", "empty"])
+def test_roi_align_kernel_matches_plain(cuda_device, dtype, case):
+    """Exact: the kernel's own geometry equals sample_geometry on the card,
+    same lerp order, no contraction on either side."""
+    feats, boxes, crop, image = _roi_case(case, dtype)
+    boxes = boxes.to(cuda_device, dtype)
     before = ROI_ALIGN_KERNEL.launches
-    out = pyramid_roi_align(feats, boxes, (pool, pool), (1024, 1024))
-    assert ROI_ALIGN_KERNEL.launches == before + 1
-    ref = pyramid_roi_align_plain(feats, boxes, (pool, pool), (1024, 1024))
+    out = pyramid_roi_align(feats, boxes, crop, image)
+    # one launch per call; none where there is no box
+    assert ROI_ALIGN_KERNEL.launches == before + (boxes.shape[1] > 0)
+    ref = pyramid_roi_align_plain(feats, boxes, crop, image)
     torch.cuda.synchronize()
+    assert out.shape == ref.shape
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("image", [(1024, 1024), (800, 600), (333, 517), (128, 128)])
+def test_level_rule_divides_as_the_kernel_multiplies(cuda_device, image, dtype):
+    """roi_levels divides by the host scalar 224 / sqrt(area); on the card
+    ATen multiplies by the scalar's reciprocal, the value the kernel gets."""
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand(1_000_000, generator=g, dtype=torch.float64) * 2).to(cuda_device, dtype)
+    scale = 224.0 / math.sqrt(float(image[0] * image[1]))
+    assert torch.equal(x / scale, x * level_scale_reciprocal(image, dtype))
+
+
+def test_roi_align_kernel_takes_boxes_of_either_dtype(cuda_device):
+    """float64 boxes over float32 levels and float32 boxes over float64
+    levels: the level rule runs in the boxes' dtype, the geometry in f32."""
+    for feat_dtype, box_dtype in ((torch.float32, torch.float64),
+                                  (torch.float64, torch.float32)):
+        feats = _pyramid(2, 64, feat_dtype)
+        boxes = _boxes(2, 200).to(cuda_device, box_dtype)
+        out = pyramid_roi_align(feats, boxes, (7, 7), (1024, 1024))
+        ref = pyramid_roi_align_plain(feats, boxes, (7, 7), (1024, 1024))
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
 
 
 def test_roi_align_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
@@ -92,6 +194,10 @@ def test_roi_align_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         pyramid_roi_align([f.transpose(1, 2) for f in feats], boxes, (7, 7), (1024, 1024))
     with pytest.raises(ValueError, match="float32 or float64"):
         pyramid_roi_align([f.half() for f in feats], boxes, (7, 7), (1024, 1024))
+    with pytest.raises(ValueError, match="boxes must be float32 or float64"):
+        pyramid_roi_align(feats, boxes.half(), (7, 7), (1024, 1024))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pyramid_roi_align([f[..., :6].contiguous() for f in feats], boxes, (7, 7), (1024, 1024))
 
 
 def test_detector_on_card_matches_cpu(cuda_device):
