@@ -10,20 +10,31 @@ Phases (each prints one JSON line):
 2. build — the CUDA kernels built from ``sln_amodal_tpu_torch/csrc`` with
    nvcc (one process per source, all started together).
 3. kernels — each kernel held against its plain PyTorch version on the card
-   at the main path's shapes with seeded inputs, bit for bit (NMS: keeps
-   equal; RoIAlign: ``torch.equal``). ``ms`` is the median time of one
-   wrapper call between CUDA events (the host's work before the launch
-   included); ``device_ms`` the mean device time of the wrapper's kernels
-   per call from ``torch.profiler``, which also gives each NMS pass
-   (``pass_ms``) and shows the RoIAlign wrapper is one launch per call;
-   ``host_us`` the wrapper's host time per call, enqueued back to back.
+   with seeded inputs at the shapes of both main paths (batch 2 for
+   ``detect``, batch 8 for ``evaluate``), bit for bit (NMS: keeps equal;
+   RoIAlign: ``torch.equal``). ``ms`` is the median time of one wrapper
+   call between CUDA events (the host's work before the launch included);
+   ``device_ms`` the mean device time of the wrapper's kernels per call
+   from ``torch.profiler``, which also gives each NMS pass (``pass_ms``)
+   and shows the RoIAlign wrapper is one launch per call; ``host_us`` the
+   wrapper's host time per call, enqueued back to back.
 4. main path — ``Detector.detect`` on 2 seeded 1024² images at the full
    width of the one supported model (ResNet-101-FPN, DeepLabV2-MSC GLM at
    513², 6000 -> 1000 proposals, 100 detections), float32, random seeded
    weights; the kernels' launch counts over that run, ms per call and peak
    device memory.
 5. reference — the whole slice at a small size in float64 on the card
-   (kernels) against the CPU (plain versions): equal boxes and classes.
+   (kernels) against the CPU (plain versions): equal boxes and classes;
+   then the evaluate path (``cli.train``) at 128² with the detection-biased
+   checkpoint on a few synthetic images, on the card and on the CPU: equal
+   result dicts (bbox, score, RLE counts) and all 12 sweep vectors equal.
+6. eval — the evaluate path of ``cli.train`` at full width, float32, 8
+   images per ``dispatch``, over 32 synthetic COCOA-style images at 1024²
+   with the detection-biased checkpoint loaded from a ``.pth``: images/s of
+   the software-pipelined loop (best of two passes), device and host ms per
+   batch, the device's busy share, the 12-way sweep's seconds, detections
+   per image, ``both/all`` AP and AR@100 (nonzero), peak device memory, and
+   the kernels' launches (NMS once and RoIAlign twice per batch).
 
 Then, on lines of their own: the kernels' JSON summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last. Any failure raises
@@ -32,10 +43,13 @@ and the exit code is non-zero; so is it without a card.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,7 +101,12 @@ def host_us(fn, repeats: int) -> float:
 
 def device_kernels(fn, repeats: int) -> dict:
     """{kernel name: (mean device ms, launches) per call} of ``fn`` over
-    ``repeats`` calls, from ``torch.profiler``, after one warm-up call."""
+    ``repeats`` calls, from ``torch.profiler``, after one warm-up call.
+
+    The profiler may drop an event of the window (seen on the card: 9
+    kernel events for 10 one-launch calls), so launches per call are the
+    recorded count rounded to an integer, and the device time per call is
+    the mean time per recorded event times that integer."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -104,7 +123,9 @@ def device_kernels(fn, repeats: int) -> dict:
             launches[e.name] = launches.get(e.name, 0) + 1
     if not ms:
         raise RuntimeError("torch.profiler recorded no device activity")
-    return {name: (ms[name] / repeats, launches[name] / repeats) for name in ms}
+    per_call = {name: round(launches[name] / repeats) for name in ms}
+    return {name: (ms[name] / launches[name] * per_call[name], per_call[name])
+            for name in ms if per_call[name] > 0}
 
 
 def bound(nbytes: float, flops: float):
@@ -134,12 +155,12 @@ def roi_boxes(rng, b, n):
     return torch.from_numpy(boxes.astype(np.float32))
 
 
-def check_nms(dev):
+def check_nms(dev, b):
     from sln_amodal_tpu_torch.ops.nms import nms_sorted_batched_plain
     from sln_amodal_tpu_torch.ops.nms_cuda import nms_sorted_batched
 
     rng = np.random.RandomState(0)
-    b, n, max_out, thr = 2, 6000, 1000, 0.7
+    n, max_out, thr = 6000, 1000, 0.7
     boxes = torch.from_numpy(np.stack([cluster_boxes(rng, n) for _ in range(b)])).to(dev)
     valid = torch.ones((b, n), dtype=torch.bool, device=dev)
     keep, keep_valid = nms_sorted_batched(boxes, valid, max_out, thr)
@@ -168,12 +189,12 @@ def check_nms(dev):
     return out
 
 
-def check_roi_align(dev):
+def check_roi_align(dev, b):
     from sln_amodal_tpu_torch.ops.roi_align import pyramid_roi_align_plain, sample_geometry
     from sln_amodal_tpu_torch.ops.roi_align_cuda import pyramid_roi_align
 
     gen = torch.Generator().manual_seed(1)
-    b, c = 2, 256
+    c = 256
     feats = [torch.randn((b, s, s, c), generator=gen).to(dev) for s in (256, 128, 64, 32)]
     shapes = [tuple(f.shape[1:]) for f in feats]
     rng = np.random.RandomState(2)
@@ -217,12 +238,13 @@ def check_roi_align(dev):
                      device_ms=sum(t for t, _ in by_kernel.values()),
                      host_us=host_us(lambda: pyramid_roi_align(*args), 30),
                      bound_ms=bound_ms, bound_by=bound_by, touched_rows=touched)
-        emit({"phase": "kernel", "name": "roi_align", **shape})
+        emit({"phase": "kernel", "name": "roi_align", "batch": b, **shape})
         per_shape.append(shape)
         for k in ("ms", "device_ms", "plain_ms", "bound_ms"):
             total[k] += shape[k]
         total["max_abs_err"] = max(total["max_abs_err"], err)
     total["bound_by"] = "bytes" if all(s["bound_by"] == "bytes" for s in per_shape) else "operations"
+    emit({"phase": "kernel", "name": "roi_align", "batch": b, "pools": "7+16", **total})
     return total
 
 
@@ -313,6 +335,264 @@ def reference_check(dev):
           "score_max_abs_err": score_err, "mask_max_abs_err": mask_err})
 
 
+def biased_detection_boxes(cfg) -> np.ndarray:
+    """Pixel boxes of the detections :func:`biased_checkpoint` gives every
+    image. Its RPN scores all anchors equally and predicts zero deltas, so
+    the proposals are the first ``pre_nms_limit`` anchors, clipped and
+    thinned by NMS (computed here with the plain versions on the CPU); its
+    classifier scores every proposal equally, so the detections are the
+    first ``detection_max_instances`` proposals, each masked by a 75% dither
+    of its box."""
+    from sln_amodal_tpu_torch.detect.proposal import proposal_layer_batched
+    from sln_amodal_tpu_torch.ops.anchors import config_anchors
+
+    anchors = torch.from_numpy(config_anchors(cfg))
+    n = anchors.shape[0]
+    props, valid = proposal_layer_batched(
+        torch.full((1, n, 2), 0.5), torch.zeros((1, n, 4)), anchors,
+        proposal_count=cfg.post_nms_rois_inference, nms_threshold=cfg.rpn_nms_threshold,
+        image_size=cfg.image_size, rpn_bbox_std_dev=cfg.rpn_bbox_std_dev,
+        pre_nms_limit=cfg.pre_nms_limit)
+    boxes = torch.round(props[0][valid[0]] * cfg.image_size).numpy().astype(np.int32)
+    boxes = boxes[:cfg.detection_max_instances]
+    return boxes[(boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])]
+
+
+def write_eval_dataset(root, cfg, n_images, seed) -> str:
+    """A COCOA-style val set in the layout of the tests' synthetic dataset
+    (``annotations/COCO_amodal_val2014.json``, ``val2014/*.jpg``): seeded
+    noise images, each with two overlapping rectangular regions, region 0
+    occluded by region 1 (``order``, ``occlude_rate``, ``isStuff``, amodal
+    ``segmentation`` and ``visible_mask``/``invisible_mask`` RLEs written with
+    the port's RLE). The rectangles are boxes the detection-biased
+    checkpoint detects (:func:`biased_detection_boxes`), so its dithered
+    masks match them: a nonzero recall shows the masks survived the
+    unmold."""
+    from PIL import Image
+    from sln_amodal_tpu_torch.eval_amodal import rle
+
+    size = cfg.image_size
+    boxes = biased_detection_boxes(cfg)
+    rng = np.random.RandomState(seed)
+    img_dir, ann_dir = os.path.join(root, "val2014"), os.path.join(root, "annotations")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+
+    def rect(box):
+        m = np.zeros((size, size), bool)
+        m[box[0]:box[2], box[1]:box[3]] = True
+        return m
+
+    def rle_str(mask):
+        r = rle.encode(np.asfortranarray(mask.astype(np.uint8)))
+        return {"size": r["size"], "counts": r["counts"].decode()}
+
+    y1, x1 = np.maximum(boxes[:, None, :2], boxes[None, :, :2]).transpose(2, 0, 1)
+    y2, x2 = np.minimum(boxes[:, None, 2:], boxes[None, :, 2:]).transpose(2, 0, 1)
+    overlap = np.clip(y2 - y1, 0, None) * np.clip(x2 - x1, 0, None)
+    np.fill_diagonal(overlap, -1)
+    images, annotations = [], []
+    for i in range(n_images):
+        img_id, fname = i + 1, f"img_{i + 1:04d}.jpg"
+        Image.fromarray(rng.randint(0, 256, (size, size, 3), np.uint8)).save(
+            os.path.join(img_dir, fname))
+        a = rng.randint(len(boxes))
+        a0, a1 = rect(boxes[a]), rect(boxes[int(np.argmax(overlap[a]))])
+        inv0 = a0 & a1
+        regions = [
+            {"segmentation": rle_str(a0), "visible_mask": rle_str(a0 & ~inv0),
+             "invisible_mask": rle_str(inv0), "isStuff": 0,
+             "occlude_rate": float(inv0.sum()) / float(a0.sum()), "order": 1,
+             "amodal_region": {"order": 1}, "area": int(a0.sum())},
+            {"segmentation": rle_str(a1), "visible_mask": rle_str(a1),
+             "isStuff": i % 2, "occlude_rate": 0.0, "order": 2,
+             "amodal_region": {"order": 2}, "area": int(a1.sum())},
+        ]
+        images.append({"id": img_id, "file_name": fname, "width": size, "height": size})
+        annotations.append({"id": img_id, "image_id": img_id, "regions": regions})
+    with open(os.path.join(ann_dir, "COCO_amodal_val2014.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations}, f)
+    return root
+
+
+def biased_checkpoint(cfg, log_dir) -> str:
+    """The detection-biased state_dict of ``cfg``'s model, saved as a
+    reference ``.pth``. Its base is the seeded init with a zero classifier
+    kernel: with random trunks the RoI features are large and alike, so a
+    random kernel decides foreground or background for every RoI at once,
+    by the seed's luck (seed 0 gives all foreground under PyTorch 2.13 and
+    all background under 2.11, which draws other values for the seed). A
+    zero kernel leaves the recipe's +8 foreground bias alone: equal scores,
+    and the detections are the first proposals in order."""
+    from sln_amodal_tpu_torch.convert import init_params
+    from sln_amodal_tpu_torch.train import checkpoint as ckpt
+    from sln_amodal_tpu_torch.utils.synthetic import detection_biased_variables
+
+    base = init_params(cfg, seed=0, device="cpu")
+    base["classifier.linear_class.weight"].zero_()
+    return ckpt.save(detection_biased_variables(base), log_dir, "biased", 1)
+
+
+def evaluate_args(root, model, batch, device):
+    from sln_amodal_tpu_torch.cli import train as cli
+
+    return cli.build_parser().parse_args([
+        "evaluate", "--dataset", root, "--model", model, "--data_type", "COCOA",
+        "--eval_batch", str(batch), "--device", str(device)])
+
+
+def reference_eval(dev, tmp):
+    """The evaluate path of ``cli.train`` at 128², float64, on the card
+    (kernels) and on the CPU (plain versions): the result dicts and the 12
+    sweep vectors must be equal."""
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.config import Config
+
+    cfg = Config(image_size=128, backbone="resnet50", glm_input_size=65,
+                 pre_nms_limit=400, post_nms_rois_inference=64,
+                 detection_max_instances=32, compute_dtype="float64", param_dtype="float64")
+    root = write_eval_dataset(os.path.join(tmp, "small"), cfg, n_images=4, seed=1)
+    model = biased_checkpoint(cfg, os.path.join(tmp, "small_logs"))
+    runs = []
+    for device in (dev, "cpu"):
+        args = evaluate_args(root, model, 2, device)
+        dataset, coco, ids = cli.load_eval_dataset(args)
+        detector = cli.make_detector(args, cfg)
+        results = cli.predict(detector, dataset, ids, args.eval_batch, progress=False)
+        runs.append((results, cli.score(coco, dataset, ids, results, "COCOA", verbose=False)))
+    (res_g, stats_g), (res_c, stats_c) = runs
+    if not res_c or len(res_g) != len(res_c) or any(g != c for g, c in zip(res_g, res_c)):
+        raise AssertionError("card and CPU evaluate result dicts differ")
+    if not all(np.array_equal(stats_g[k], stats_c[k]) for k in stats_c):
+        raise AssertionError("card and CPU 12-way sweeps differ")
+    emit({"phase": "reference_eval", "images": len(ids), "results": len(res_c),
+          "results_equal": True, "sweeps_equal": True,
+          "both_all_ap": float(stats_c["both/all"][0]),
+          "both_all_ar100": float(stats_c["both/all"][5])})
+
+
+@contextlib.contextmanager
+def timed_loop(cli, detector):
+    """Records, per batch of the pipelined loop, the host ms of its three
+    steps (image load, ``dispatch``, drain = ``collect_crops`` + RLE) and the
+    CUDA events around its ``dispatch`` (their span on the device runs from
+    the end of the previous batch's work to the end of this batch's)."""
+    rec = {"load": [], "dispatch": [], "drain": [], "events": []}
+    load, drain, dispatch = cli.load_batch, cli.coco_results, detector.dispatch
+
+    def timed(fn, key):
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            rec[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def dispatch_with_events(images):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = dispatch(images)
+        end.record()
+        rec["events"].append((start, end))
+        return out
+
+    cli.load_batch, cli.coco_results = timed(load, "load"), timed(drain, "drain")
+    detector.dispatch = timed(dispatch_with_events, "dispatch")
+    try:
+        yield rec
+    finally:
+        cli.load_batch, cli.coco_results = load, drain
+        del detector.dispatch
+
+
+def eval_path(dev, tmp):
+    """Phase 6: ``cli.train``'s evaluate path on the card at full width."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.eval_amodal import rle
+    from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
+    from sln_amodal_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_KERNEL
+
+    n_images, batch = 32, 8
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "eval")
+    config = cli.eval_config(evaluate_args(root, "", batch, dev))
+    write_eval_dataset(root, config, n_images, seed=2)
+    args = evaluate_args(root, biased_checkpoint(config, os.path.join(tmp, "eval_logs")),
+                         batch, dev)
+    dataset, coco, ids = cli.load_eval_dataset(args)
+    detector = cli.make_detector(args, config)
+    setup_s = time.perf_counter() - t0
+    cli.predict(detector, dataset, ids[:batch], batch, progress=False)   # warm-up
+    torch.cuda.synchronize()
+
+    batches = 2 * len(range(0, len(ids), batch))
+    NMS_KERNEL.launches = 0
+    ROI_ALIGN_KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, passes = [], []
+    with timed_loop(cli, detector) as rec:
+        for _ in range(2):
+            t = time.perf_counter()
+            passes.append(cli.predict(detector, dataset, ids, batch, progress=False))
+            walls.append(time.perf_counter() - t)
+    launches = {"nms": NMS_KERNEL.launches, "roi_align": ROI_ALIGN_KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != {"nms": batches, "roi_align": 2 * batches}:
+        raise AssertionError(f"kernel launches over {batches} evaluate batches: {launches}")
+    results = passes[-1]
+    if passes[0] != results:
+        raise AssertionError("two passes over the same images gave other results")
+
+    # device busy share: kernel and copy time over one more pass's wall time,
+    # under torch.profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        cli.predict(detector, dataset, ids, batch, progress=False)
+        profiled_wall = time.perf_counter() - t
+    # and the host's time inside CUDA runtime calls (a launch blocks while
+    # the launch queue is full; a pageable upload waits for the stream)
+    busy_ms, runtime_ms = 0.0, {}
+    for e in prof.events():
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        if e.device_type == DeviceType.CUDA:
+            busy_ms += ms
+        elif e.name.startswith("cuda"):
+            runtime_ms[e.name] = runtime_ms.get(e.name, 0.0) + ms
+
+    t = time.perf_counter()
+    stats = cli.score(coco, dataset, ids, results, "COCOA", verbose=False)
+    sweep_s = time.perf_counter() - t
+
+    per_image = [sum(r["image_id"] == dataset.image_info[i]["id"] for r in results) for i in ids]
+    least_area = min(rle.area(r["segmentation"]) for r in results)
+    if min(per_image) == 0 or least_area == 0:
+        raise AssertionError(f"detections per image {per_image}, least mask area {least_area}")
+    if not all(np.isfinite(v).all() for v in stats.values()) or stats["both/all"][5] <= 0:
+        raise AssertionError(f"both/all stats {stats['both/all']}: AR@100 must be > 0")
+    spans = [s.elapsed_time(e) for s, e in rec["events"]]
+    out = dict(images=n_images, batch=batch, image=config.image_size,
+               dtype=config.compute_dtype, setup_s=setup_s,
+               images_per_s=n_images / min(walls), pass_s=walls,
+               device_span_ms_per_batch=statistics.mean(spans),
+               device_span_share=sum(spans) / 1e3 / sum(walls),
+               device_busy_ms_per_batch=busy_ms / (batches // 2),
+               busy_share=busy_ms / 1e3 / profiled_wall, profiled_pass_s=profiled_wall,
+               host_ms_per_batch={k: statistics.mean(rec[k]) for k in ("load", "dispatch", "drain")},
+               host_cuda_runtime_ms_per_batch={k: v / (batches // 2) for k, v in
+                                               sorted(runtime_ms.items(), key=lambda kv: -kv[1])
+                                               if v / (batches // 2) >= 0.5},
+               sweep_s=sweep_s, detections_per_image=statistics.mean(per_image),
+               both_all_ap=float(stats["both/all"][0]),
+               both_all_ar100=float(stats["both/all"][5]),
+               peak_mem_bytes=int(peak), batches=batches, launches=launches)
+    emit({"phase": "eval", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -338,25 +618,29 @@ def main() -> int:
           "ptxas": {name: [ln for ln in log.splitlines() if "Used" in ln]
                     for name, log in logs.items()}})
 
-    nms = check_nms(dev)
-    roi = check_roi_align(dev)
+    # both main paths' shapes: batch 2 (detect) and batch 8 (evaluate)
+    for b in (2, 8):
+        nms, roi = check_nms(dev, b), check_roi_align(dev, b)
     path = main_path(dev)
-    reference_check(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        reference_check(dev)
+        reference_eval(dev, tmp)
+        ev = eval_path(dev, tmp)
 
-    kernels = [
-        {"name": "nms_sorted_batched", "route": "cuda",
-         "source": "sln_amodal_tpu_torch/csrc/nms.cu",
-         "replaces": "sln_amodal_tpu/ops/nms_pallas.py:60",
-         "launches": path["launches"]["nms"], "max_abs_err": nms["max_abs_err"],
-         "ms": nms["ms"], "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
-         "bound_by": nms["bound_by"], "library_ms": None, "device_ms": nms["device_ms"]},
-        {"name": "pyramid_roi_align", "route": "cuda",
-         "source": "sln_amodal_tpu_torch/csrc/roi_align.cu",
-         "replaces": "sln_amodal_tpu/ops/roi_patch_pallas.py:59",
-         "launches": path["launches"]["roi_align"], "max_abs_err": roi["max_abs_err"],
-         "ms": roi["ms"], "plain_ms": roi["plain_ms"], "bound_ms": roi["bound_ms"],
-         "bound_by": roi["bound_by"], "library_ms": None, "device_ms": roi["device_ms"]},
-    ]
+    # times at the evaluate path's shapes (batch 8); launches of the
+    # evaluate run, with the detect run's beside them
+    kernels = []
+    for name, source, replaces, key, k in (
+            ("nms_sorted_batched", "nms.cu", "nms_pallas.py:60", "nms", nms),
+            ("pyramid_roi_align", "roi_align.cu", "roi_patch_pallas.py:59", "roi_align", roi)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"sln_amodal_tpu_torch/csrc/{source}",
+            "replaces": f"sln_amodal_tpu/ops/{replaces}", "launches": ev["launches"][key],
+            "launches_by_path": {"detect": path["launches"][key],
+                                 "evaluate": ev["launches"][key]},
+            "batch": 8, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "device_ms": k["device_ms"]})
     emit({"kernels": kernels})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

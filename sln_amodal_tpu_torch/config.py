@@ -141,3 +141,16 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def training_config(**overrides) -> Config:
+    """Config used for training (the reference's ``Amodalfig``)."""
+    return Config(**overrides)
+
+
+def inference_config(**overrides) -> Config:
+    """Config used for evaluation/inference (the reference's
+    ``InferenceConfig``: batch 1, DETECTION_MIN_CONFIDENCE = 0)."""
+    base = dict(batch_size=1, detection_min_confidence=0.0)
+    base.update(overrides)
+    return Config(**base)
