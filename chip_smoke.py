@@ -17,7 +17,10 @@ Phases (each prints one JSON line):
    ``device_ms`` the mean device time of the wrapper's kernels per call
    from ``torch.profiler``, which also gives each NMS pass (``pass_ms``)
    and shows the RoIAlign wrapper is one launch per call; ``host_us`` the
-   wrapper's host time per call, enqueued back to back.
+   wrapper's host time per call, enqueued back to back. The RoIAlign
+   backward kernel at the train step's shapes (batch 2, 100 ROIs per image,
+   pools 7 and 16) against the plain backward on the card, within 1e-5 of
+   the largest gradient, and two launches bit-equal.
 4. main path — ``Detector.detect`` on 2 seeded 1024² images at the full
    width of the one supported model (ResNet-101-FPN, DeepLabV2-MSC GLM at
    513², 6000 -> 1000 proposals, 100 detections), float32, random seeded
@@ -35,6 +38,23 @@ Phases (each prints one JSON line):
    batch, the device's busy share, the 12-way sweep's seconds, detections
    per image, ``both/all`` AP and AR@100 (nonzero), peak device memory, and
    the kernels' launches (NMS once and RoIAlign twice per batch).
+7. reference_train — one training step at 128², float64, on the card
+   (kernels) and on the CPU (plain versions) from the same weights, batch
+   and target-layer draws: equal sampled ROIs, losses within 1e-6
+   relative, updated parameters within 1e-6 of the update's size.
+8. convergence — the recipe of ``tests/test_convergence.py`` on the card
+   (64², 150 heads steps, RPN biased and frozen): AP@.5 and AR@100 must
+   rise above their before-training values (printed beside the JAX test's
+   floors).
+9. train — ``cli.train train`` at full width, float32, TF32 off, batch 2,
+   on 16 synthetic 1024² images with ground truth on the biased RPN's first
+   proposals, from the RPN-biased checkpoint: ``--stage heads`` 6 steps,
+   then ``--stage all`` 3 steps. Per stage: median step wall and CUDA-event
+   device ms, images/s, loader wait per step, busy share of the last
+   (profiled) step, peak memory, first and last losses (finite), positive
+   ROIs per step (> 0) and launches per step (NMS 1, RoIAlign 2, backward
+   2). ``evaluate`` then loads the saved checkpoint on 8 of the images and
+   must detect.
 
 Then, on lines of their own: the kernels' JSON summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last. Any failure raises
@@ -106,21 +126,26 @@ def device_kernels(fn, repeats: int) -> dict:
     The profiler may drop an event of the window (seen on the card: 9
     kernel events for 10 one-launch calls), so launches per call are the
     recorded count rounded to an integer, and the device time per call is
-    the mean time per recorded event times that integer."""
+    the mean time per recorded event times that integer. It may also record
+    no device event at all in a window (seen once in a long run), so an
+    empty window is profiled again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
     ms, launches = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms[e.name] = ms.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-            launches[e.name] = launches.get(e.name, 0) + 1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms[e.name] = ms.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+                launches[e.name] = launches.get(e.name, 0) + 1
+        if ms:
+            break
     if not ms:
         raise RuntimeError("torch.profiler recorded no device activity")
     per_call = {name: round(launches[name] / repeats) for name in ms}
@@ -248,6 +273,79 @@ def check_roi_align(dev, b):
     return total
 
 
+def clustered_boxes(rng, b, n, image=1024.0):
+    """Normalized boxes 24-64 px wide in the top 64 px rows of the image,
+    where the smoke's train phase samples its ROIs (the ground truth sits
+    on the biased RPN's first proposals): many ROIs on few level rows."""
+    size = rng.uniform(24, 64, (b, n, 2))
+    y1 = rng.uniform(0, 64, (b, n)) - size[..., 0] / 2
+    x1 = rng.uniform(0, image - 64, (b, n))
+    boxes = np.stack([y1, x1, y1 + size[..., 0], x1 + size[..., 1]], -1)
+    return torch.from_numpy(np.clip(boxes, 0, image).astype(np.float32) / image)
+
+
+def check_roi_align_backward(dev, b):
+    """The RoIAlign backward kernel at the train step's shapes (1024²
+    pyramid, C=256, 100 sampled ROIs per image, pools 7 and 16) against the
+    plain backward on the card (within 1e-5 of the largest gradient: both
+    sum in float32, in other orders), and two launches bit-equal; with
+    boxes spread over the image and with boxes clustered on a few rows as
+    the train phase's are (the summary line is the clustered one's)."""
+    from sln_amodal_tpu_torch.ops.roi_align import pyramid_roi_align_backward_plain
+    from sln_amodal_tpu_torch.ops.roi_align_cuda import pyramid_roi_align_backward
+
+    gen = torch.Generator().manual_seed(4)
+    c, n = 256, 100
+    shapes = [(s, s, c) for s in (256, 128, 64, 32)]
+    rng = np.random.RandomState(5)
+    per_shape = []
+    for layout, pool in (("spread", 7), ("spread", 16), ("clustered", 7), ("clustered", 16)):
+        make = roi_boxes if layout == "spread" else clustered_boxes
+        boxes = make(rng, b, n).to(dev)
+        grad = torch.randn((b, n, pool, pool, c), generator=gen).to(dev)
+        args = (grad, boxes, shapes, (pool, pool), (1024, 1024), torch.float32)
+        out = pyramid_roi_align_backward(*args)
+        again = pyramid_roi_align_backward(*args)
+        ref = pyramid_roi_align_backward_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, a) for o, a in zip(out, again)):
+            raise AssertionError(f"RoIAlign backward pool {pool}: two launches differ")
+        scale = max(float(r.abs().max()) for r in ref)
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        if err > 1e-5 * scale:
+            raise AssertionError(f"RoIAlign backward pool {pool}: max |diff| {err} "
+                                 f"beyond 1e-5 of the largest gradient {scale}")
+        ms = cuda_ms(lambda: pyramid_roi_align_backward(*args), 20)
+        plain_ms = cuda_ms(lambda: pyramid_roi_align_backward_plain(*args), 3)
+        by_kernel = device_kernels(lambda: pyramid_roi_align_backward(*args), 10)
+        kernel_launches = {k: v for k, v in by_kernel.items() if "roi_align_backward" in k}
+        if [n_ for _, n_ in kernel_launches.values()] != [1]:
+            raise AssertionError(f"RoIAlign backward wrapper launches {by_kernel}")
+        # what the function must move: every level's gradient written whole,
+        # the cotangent read once, the boxes once
+        nbytes = sum(b * h * w * c * 4 for h, w, _ in shapes) + grad.numel() * 4 + b * n * 16
+        # per cotangent element: two rows, two corners, two products and an add
+        bound_ms, bound_by = bound(nbytes, 12 * grad.numel())
+        shape = dict(layout=layout, pool=pool, n=n, max_abs_err=err, max_rel_err=err / scale,
+                     deterministic=True, ms=ms, plain_ms=plain_ms,
+                     device_ms=sum(t for t, _ in kernel_launches.values()),
+                     other_device_ms=sum(t for k, (t, _) in by_kernel.items()
+                                         if k not in kernel_launches),
+                     host_us=host_us(lambda: pyramid_roi_align_backward(*args), 30),
+                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        emit({"phase": "kernel", "name": "roi_align_backward", "batch": b, **shape})
+        per_shape.append(shape)
+    clustered = [s for s in per_shape if s["layout"] == "clustered"]
+    total = {k: sum(s[k] for s in clustered) for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    total.update(max_abs_err=max(s["max_abs_err"] for s in per_shape),
+                 max_rel_err=max(s["max_rel_err"] for s in per_shape),
+                 bound_by="bytes" if all(s["bound_by"] == "bytes" for s in clustered)
+                 else "operations")
+    emit({"phase": "kernel", "name": "roi_align_backward", "batch": b, "layout": "clustered",
+          "pools": "7+16", **total})
+    return total
+
+
 def main_path(dev):
     from sln_amodal_tpu_torch.config import Config
     from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
@@ -358,23 +456,28 @@ def biased_detection_boxes(cfg) -> np.ndarray:
     return boxes[(boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])]
 
 
-def write_eval_dataset(root, cfg, n_images, seed) -> str:
-    """A COCOA-style val set in the layout of the tests' synthetic dataset
-    (``annotations/COCO_amodal_val2014.json``, ``val2014/*.jpg``): seeded
-    noise images, each with two overlapping rectangular regions, region 0
-    occluded by region 1 (``order``, ``occlude_rate``, ``isStuff``, amodal
-    ``segmentation`` and ``visible_mask``/``invisible_mask`` RLEs written with
-    the port's RLE). The rectangles are boxes the detection-biased
-    checkpoint detects (:func:`biased_detection_boxes`), so its dithered
-    masks match them: a nonzero recall shows the masks survived the
-    unmold."""
+def write_eval_dataset(root, cfg, n_images, seed, subset="val", layers=False) -> str:
+    """A COCOA-style set in the layout of the tests' synthetic dataset
+    (``annotations/COCO_amodal_{subset}2014.json``, ``{subset}2014/*.jpg``):
+    seeded noise images, each with two overlapping rectangular regions,
+    region 0 occluded by region 1 (``order``, ``occlude_rate``, ``isStuff``,
+    amodal ``segmentation`` and ``visible_mask``/``invisible_mask`` RLEs
+    written with the port's RLE), and with ``layers`` the sem-dist layer map
+    beside each image (``.npz``, the training loader's ground truth). The
+    rectangles are boxes the biased RPN proposes first
+    (:func:`biased_detection_boxes`): the detection-biased checkpoint's
+    dithered masks match them (a nonzero recall shows the masks survived
+    the unmold), and training from the RPN-biased checkpoint samples
+    positive ROIs on them."""
     from PIL import Image
+    from sln_amodal_tpu_torch.data import semdist
     from sln_amodal_tpu_torch.eval_amodal import rle
 
     size = cfg.image_size
     boxes = biased_detection_boxes(cfg)
     rng = np.random.RandomState(seed)
-    img_dir, ann_dir = os.path.join(root, "val2014"), os.path.join(root, "annotations")
+    img_dir = os.path.join(root, f"{subset}2014")
+    ann_dir = os.path.join(root, "annotations")
     os.makedirs(img_dir, exist_ok=True)
     os.makedirs(ann_dir, exist_ok=True)
 
@@ -399,6 +502,9 @@ def write_eval_dataset(root, cfg, n_images, seed) -> str:
         a = rng.randint(len(boxes))
         a0, a1 = rect(boxes[a]), rect(boxes[int(np.argmax(overlap[a]))])
         inv0 = a0 & a1
+        if layers:
+            np.savez(os.path.join(img_dir, fname[:-4] + ".npz"),
+                     layer=semdist.encode_layer_map([a0, a1], [inv0, None], min_size=4))
         regions = [
             {"segmentation": rle_str(a0), "visible_mask": rle_str(a0 & ~inv0),
              "invisible_mask": rle_str(inv0), "isStuff": 0,
@@ -410,7 +516,7 @@ def write_eval_dataset(root, cfg, n_images, seed) -> str:
         ]
         images.append({"id": img_id, "file_name": fname, "width": size, "height": size})
         annotations.append({"id": img_id, "image_id": img_id, "regions": regions})
-    with open(os.path.join(ann_dir, "COCO_amodal_val2014.json"), "w") as f:
+    with open(os.path.join(ann_dir, f"COCO_amodal_{subset}2014.json"), "w") as f:
         json.dump({"images": images, "annotations": annotations}, f)
     return root
 
@@ -593,13 +699,356 @@ def eval_path(dev, tmp):
     return out
 
 
+def write_rect_dataset(root, size, n_images, subset, seed) -> str:
+    """The tests' synthetic COCOA-style set (``tests/fixtures.py``, written
+    with the port's sem-dist codec and RLE): per image two overlapping
+    squares at a seeded offset, square 0 occluded by square 1, with the
+    sem-dist layer map beside each image."""
+    from PIL import Image
+    from sln_amodal_tpu_torch.data import semdist
+    from sln_amodal_tpu_torch.eval_amodal import rle
+
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, f"{subset}2014")
+    ann_dir = os.path.join(root, "annotations")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+
+    def rect(y1, x1, y2, x2):
+        m = np.zeros((size, size), bool)
+        m[y1:y2, x1:x2] = True
+        return m
+
+    def rle_str(mask):
+        r = rle.encode(np.asfortranarray(mask.astype(np.uint8)))
+        return {"size": r["size"], "counts": r["counts"].decode()}
+
+    images, annotations = [], []
+    for i in range(n_images):
+        img_id, fname = i + 1, f"img_{i + 1:04d}.jpg"
+        Image.fromarray(rng.randint(0, 255, (size, size, 3), np.uint8)).save(
+            os.path.join(img_dir, fname))
+        o, half = rng.randint(0, size // 4), size // 2
+        a0 = rect(o, o, o + half, o + half)
+        a1 = rect(o + half // 2, o + half // 2, o + half // 2 + half, o + half // 2 + half)
+        inv0 = a0 & a1
+        np.savez(os.path.join(img_dir, fname[:-4] + ".npz"),
+                 layer=semdist.encode_layer_map([a0, a1], [inv0, None], min_size=4))
+        regions = [
+            {"segmentation": rle_str(a0), "visible_mask": rle_str(a0 & ~inv0),
+             "invisible_mask": rle_str(inv0), "isStuff": 0,
+             "occlude_rate": float(inv0.sum()) / max(float(a0.sum()), 1.0), "order": 1,
+             "amodal_region": {"order": 1}, "area": int(a0.sum())},
+            {"segmentation": rle_str(a1), "visible_mask": rle_str(a1), "isStuff": 0,
+             "occlude_rate": 0.0, "order": 2, "amodal_region": {"order": 2},
+             "area": int(a1.sum())},
+        ]
+        images.append({"id": img_id, "file_name": fname, "width": size, "height": size})
+        annotations.append({"id": img_id, "image_id": img_id, "regions": regions})
+    with open(os.path.join(ann_dir, f"COCO_amodal_{subset}2014.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations}, f)
+    return root
+
+
+def one_step(model, batch, stage, lr, seed):
+    """One training step, keeping the graph's outputs: (outputs, losses)."""
+    from sln_amodal_tpu_torch.train.optim import make_optimizer
+    from sln_amodal_tpu_torch.train.trainer import batched_losses
+
+    opt = make_optimizer(model, stage, lr)
+    out = model.train_step_outputs(batch["images"], batch["gt_class_ids"], batch["gt_boxes"],
+                                   batch["gt_masks"],
+                                   generator=torch.Generator().manual_seed(seed))
+    losses = batched_losses(out, batch)
+    opt.zero_grad()
+    losses["total"].backward()
+    opt.step()
+    return out, {k: float(v.detach()) for k, v in losses.items()}
+
+
+def reference_train(dev, tmp):
+    """One training step ("all" stage) at 128², float64, on the card
+    (kernels) and on the CPU (plain versions), from the same RPN-biased
+    weights, batch and target-layer draws: equal sampled ROIs and class ids,
+    losses within 1e-6 relative, updated parameters within 1e-6 of the
+    update's size."""
+    from sln_amodal_tpu_torch.config import Config
+    from sln_amodal_tpu_torch.convert import init_params
+    from sln_amodal_tpu_torch.data.dataset import AmodalDataset
+    from sln_amodal_tpu_torch.data.pipeline import TrainLoader
+    from sln_amodal_tpu_torch.models.sln import SLNAmodal
+    from sln_amodal_tpu_torch.train.trainer import to_device
+    from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
+
+    cfg = Config(image_size=128, backbone="resnet50", glm_input_size=65, pre_nms_limit=400,
+                 post_nms_rois_training=64, post_nms_rois_inference=64,
+                 detection_max_instances=32, train_rois_per_image=16, max_gt_instances=8,
+                 batch_size=2, compute_dtype="float64", param_dtype="float64")
+    root = write_eval_dataset(os.path.join(tmp, "train_small"), cfg, 4, seed=3,
+                              subset="train", layers=True)
+    ds = AmodalDataset()
+    ds.load_amodal(root, "train")
+    ds.prepare()
+    loader = iter(TrainLoader(ds, cfg, seed=0, workers=1))
+    batch_np = next(loader)
+    sd = rpn_biased_variables(init_params(cfg, seed=0, device="cpu"))
+    runs = []
+    for device in (dev, "cpu"):
+        model = SLNAmodal(cfg, device=device)
+        model.load_state_dict(sd)
+        out, losses = one_step(model, to_device(batch_np, device), "all", 1e-3, seed=11)
+        runs.append((out, losses, {k: v.detach().cpu() for k, v in model.named_parameters()}))
+    (out_g, loss_g, par_g), (out_c, loss_c, par_c) = runs
+    t_g, t_c = out_g.targets, out_c.targets
+    if not (torch.equal(t_g.rois.cpu(), t_c.rois) and torch.equal(t_g.class_ids.cpu(), t_c.class_ids)
+            and torch.equal(t_g.valid.cpu(), t_c.valid)):
+        raise AssertionError("card and CPU sampled other ROIs")
+    positives = int(t_c.positive.sum())
+    loss_err = max(abs(loss_g[k] - loss_c[k]) / max(abs(loss_c[k]), 1e-30) for k in loss_c)
+    update = max(float((par_c[k] - sd[k].to(par_c[k].dtype)).abs().max()) for k in par_c)
+    param_err = max(float((par_g[k] - par_c[k]).abs().max()) for k in par_c)
+    if positives == 0 or loss_err > 1e-6 or param_err > 1e-6 * update:
+        raise AssertionError(f"train step: positives {positives}, losses rel {loss_err}, "
+                             f"params {param_err} of update {update}")
+    emit({"phase": "reference_train", "rois_equal": True, "positives": positives,
+          "losses_cpu": loss_c, "loss_max_rel_err": loss_err, "update_max_abs": update,
+          "param_max_abs_err": param_err, "param_err_of_update": param_err / update})
+
+
+def convergence(dev, tmp, steps=150):
+    """The recipe of tests/test_convergence.py on the card: 64², ``steps``
+    (150) steps of the ROI heads at batch 2 with the RPN biased and frozen; AP@.5 and
+    AR@100 (both/all) of the 4 validation images must rise above their
+    before-training values."""
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.config import Config
+    from sln_amodal_tpu_torch.convert import init_params
+    from sln_amodal_tpu_torch.data.pipeline import TrainLoader
+    from sln_amodal_tpu_torch.infer import Detector
+    from sln_amodal_tpu_torch.train.trainer import Trainer
+    from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
+
+    root = os.path.join(tmp, "conv")
+    write_rect_dataset(root, 64, 8, "train", seed=0)
+    write_rect_dataset(root, 64, 4, "val", seed=7)
+    cfg = Config(image_size=64, glm_input_size=33, batch_size=2, pre_nms_limit=512,
+                 post_nms_rois_inference=256, post_nms_rois_training=64,
+                 train_rois_per_image=16, detection_max_instances=100, max_gt_instances=8,
+                 rpn_train_anchors_per_image=64, compute_dtype="float32",
+                 param_dtype="float32", name="cocoa")
+    icfg = cfg.replace(batch_size=1, detection_min_confidence=0.0)
+    args = evaluate_args(root, "", 1, dev)
+    dataset, coco, ids = cli.load_eval_dataset(args)
+
+    def headline(state_dict):
+        det = Detector(icfg, state_dict, device=dev)
+        results = cli.predict(det, dataset, ids, 1, progress=False)
+        stats = cli.score(coco, dataset, ids, results, "COCOA", verbose=False)
+        return (0.0, 0.0) if stats is None else (float(stats["both/all"][1]),
+                                                 float(stats["both/all"][5]))
+
+    sd = rpn_biased_variables(init_params(cfg, seed=0, device="cpu"))
+    before = headline(sd)
+    trainer = Trainer(cfg, sd, device=dev)
+    t = time.perf_counter()
+    losses = trainer.train_stage(
+        TrainLoader(cli.load_train_dataset(args, "train"), cfg, seed=0),
+        lambda name: name.startswith(("classifier.", "mask.")), cfg.learning_rate,
+        epochs=1, steps_per_epoch=steps)
+    train_s = time.perf_counter() - t
+    after = headline(trainer.model.state_dict())
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"convergence losses {losses}")
+    if not (after[0] > before[0] and after[1] > before[1]):
+        raise AssertionError(f"training did not lift AP@.5 / AR@100: {before} -> {after}")
+    emit({"phase": "convergence", "steps": steps, "train_s": train_s,
+          "ap50_before": before[0], "ar100_before": before[1],
+          "ap50_after": after[0], "ar100_after": after[1],
+          "jax_test_floors": {"ap50": 0.04, "ar100": 0.15}, "final_losses": losses})
+
+
+@contextlib.contextmanager
+def timed_train(trainer_mod, cli, kernels, profile_last):
+    """Records, per train step of ``cli.train``'s loop: host wall ms (the
+    step ends in a synchronize), the CUDA events' device span, the losses,
+    the positive ROIs, each kernel's launches, and the loader's wait; the
+    last ``profile_last`` steps of each stage run under ``torch.profiler``
+    (kernel time over step wall: the busy share) and are left out of the
+    timings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = {"steps": [], "loader_wait_ms": [], "positives": [], "stages": []}
+    step_fn, losses_fn, loader_cls = trainer_mod.train_step, trainer_mod.batched_losses, cli.TrainLoader
+    state = {"n": 0, "total": 0, "prof": None}
+
+    def batched_losses(out, batch):
+        rec["positives"].append(out.targets.positive.sum())
+        return losses_fn(out, batch)
+
+    def train_step(model, optimizer, batch, generator=None, uniforms=None):
+        i = state["n"]
+        if i == state["total"] - profile_last:
+            state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            state["prof"].start()
+        before = [k.launches for k in kernels]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        losses = step_fn(model, optimizer, batch, generator, uniforms)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        rec["steps"].append(dict(wall_ms=wall, device_ms=start.elapsed_time(end),
+                                 losses={k: float(v) for k, v in losses.items()},
+                                 positives=int(rec["positives"][-1]),
+                                 launches=[k.launches - b for k, b in zip(kernels, before)],
+                                 profiled=state["prof"] is not None))
+        state["n"] += 1
+        return losses
+
+    class TimedLoader(loader_cls):
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t = time.perf_counter()
+                batch = next(it)
+                rec["loader_wait_ms"].append((time.perf_counter() - t) * 1e3)
+                yield batch
+
+    def stage(total_steps):
+        state.update(n=0, total=total_steps, prof=None)
+
+    def stop_profile():
+        """(device ms of the profiled steps' kernels, {kernel: ms} of the
+        port's three kernels among them)."""
+        prof = state["prof"]
+        if prof is None:
+            return 0.0, {}
+        prof.stop()
+        from torch.autograd import DeviceType
+        spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "Memcpy" not in e.name
+                 and "Memset" not in e.name]
+        ours = {k: sum(ms for name, ms in spans if k in name)
+                for k in ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel",
+                          "roi_align_backward_kernel")}
+        return sum(ms for _, ms in spans), ours
+
+    trainer_mod.train_step, trainer_mod.batched_losses, cli.TrainLoader = (
+        train_step, batched_losses, TimedLoader)
+    try:
+        yield rec, stage, stop_profile
+    finally:
+        trainer_mod.train_step, trainer_mod.batched_losses, cli.TrainLoader = (
+            step_fn, losses_fn, loader_cls)
+
+
+def train_path(dev, tmp):
+    """``cli.train train`` at full width (ResNet-101-FPN, DeepLabV2-MSC at
+    513², 1024², float32, TF32 off, batch 2) on 16 synthetic images whose
+    ground truth sits on the biased RPN's first proposals, from the
+    RPN-biased checkpoint: ``--stage heads`` for 6 steps, then ``--stage
+    all`` for 3 (the backward through all of ResNet-101); then ``evaluate``
+    loads the saved checkpoint on 8 of the images and must detect."""
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.convert import init_params
+    from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
+    from sln_amodal_tpu_torch.ops.roi_align_cuda import (ROI_ALIGN_BACKWARD_KERNEL,
+                                                         ROI_ALIGN_KERNEL)
+    from sln_amodal_tpu_torch.train import checkpoint as ckpt
+    from sln_amodal_tpu_torch.train import trainer as trainer_mod
+    from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
+
+    kernels = (NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL)
+    names = ("nms", "roi_align", "roi_align_backward")
+    root, logs = os.path.join(tmp, "train"), os.path.join(tmp, "train_logs")
+    t0 = time.perf_counter()
+    cfg = cli.train_config(cli.build_parser().parse_args(
+        ["train", "--dataset", root, "--batch_size", "2"]))
+    write_eval_dataset(root, cfg, 16, seed=4, subset="train", layers=True)
+    write_eval_dataset(root, cfg, 8, seed=4, subset="val")      # the first 8 images
+    # the RPN-biased checkpoint with a zero shared RPN conv: its features are
+    # 0, so training moves only the RPN's per-anchor-shape biases and the
+    # proposals stay the anchors in order, where the ground truth sits (with
+    # a random trunk's large features, one SGD step of the RPN reorders the
+    # anchors at random and the positives vanish)
+    sd = rpn_biased_variables(init_params(cfg, seed=0, device="cpu"))
+    sd["rpn.conv_shared.weight"].zero_()
+    sd["rpn.conv_shared.bias"].zero_()
+    model = ckpt.save(sd, os.path.join(tmp, "rpn_biased"), "rpn_biased", 1)
+    setup_s = time.perf_counter() - t0
+
+    common = ["--dataset", root, "--batch_size", "2", "--logs", logs, "--seed", "0",
+              "--device", str(dev)]
+    stages = {}
+    for k in kernels:
+        k.launches = 0
+    with timed_train(trainer_mod, cli, kernels, profile_last=1) as (rec, stage, stop_profile):
+        for name, steps, extra in (("heads", 6, ["--model", model]),
+                                   ("all", 3, ["--model", "last"])):
+            stage(steps)
+            first = len(rec["steps"])
+            waits = len(rec["loader_wait_ms"])
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            out = cli.main(["train", "--stage", name, "--epochs", "1", "--steps_per_epoch",
+                            str(steps), *extra, *common])
+            stage_s = time.perf_counter() - t
+            busy_ms, kernel_ms = stop_profile()
+            steps_rec = rec["steps"][first:]
+            timed = [s for s in steps_rec[1:] if not s["profiled"]] or steps_rec[1:2]
+            profiled = [s for s in steps_rec if s["profiled"]]
+            losses = [s["losses"]["total"] for s in steps_rec]
+            if len(steps_rec) != steps or not all(np.isfinite(v) for s in steps_rec
+                                                  for v in s["losses"].values()):
+                raise AssertionError(f"stage {name}: steps {steps_rec}")
+            if min(s["positives"] for s in steps_rec) == 0:
+                raise AssertionError(f"stage {name}: a step sampled no positive ROI: "
+                                     f"{[s['positives'] for s in steps_rec]}")
+            if any(s["launches"] != [1, 2, 2] for s in steps_rec):
+                raise AssertionError(f"stage {name}: launches per step "
+                                     f"{[s['launches'] for s in steps_rec]}")
+            wall = statistics.median(s["wall_ms"] for s in timed)
+            stages[name] = dict(
+                steps=steps, checkpoint=os.path.basename(out.checkpoints[-1]),
+                step_wall_ms_median=wall,
+                step_device_ms_median=statistics.median(s["device_ms"] for s in timed),
+                step_wall_ms=[s["wall_ms"] for s in steps_rec],
+                images_per_s=2 * 1e3 / wall, stage_wall_s=stage_s,
+                loader_wait_ms_per_step=statistics.mean(rec["loader_wait_ms"][waits:]),
+                busy_share_profiled_step=busy_ms / sum(s["wall_ms"] for s in profiled),
+                kernel_device_ms_profiled_step=kernel_ms,
+                peak_mem_bytes=int(torch.cuda.max_memory_allocated(dev)),
+                first_losses=steps_rec[0]["losses"], last_losses=steps_rec[-1]["losses"],
+                total_loss_by_step=losses,
+                positives_per_step=[s["positives"] for s in steps_rec],
+                launches_per_step=dict(zip(names, steps_rec[-1]["launches"])))
+            emit({"phase": "train", "stage": name, **stages[name]})
+    launches = {n: k.launches for n, k in zip(names, kernels)}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the train path never launched: {launches}")
+
+    # evaluate loads the last checkpoint on 8 of the training images
+    ev = cli.main(["evaluate", "--dataset", root, "--model", "last", "--logs", logs,
+                   "--eval_batch", "8", "--device", str(dev), "--data_type", "COCOA"])
+    if not ev.results:
+        raise AssertionError("evaluate of the trained checkpoint gave no detection")
+    out = dict(setup_s=setup_s, stages=stages, launches=launches,
+               evaluate_detections=len(ev.results),
+               evaluate_both_all_ap=None if ev.stats is None else float(ev.stats["both/all"][0]))
+    emit({"phase": "train_evaluate", "detections": len(ev.results),
+          "both_all_ap": out["evaluate_both_all_ap"]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from sln_amodal_tpu_torch.cuda_build import build_all
     from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
-    from sln_amodal_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_KERNEL
+    from sln_amodal_tpu_torch.ops.roi_align_cuda import (ROI_ALIGN_BACKWARD_KERNEL,
+                                                         ROI_ALIGN_KERNEL)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -613,7 +1062,7 @@ def main() -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
-    build_s, logs = build_all([NMS_KERNEL, ROI_ALIGN_KERNEL])
+    build_s, logs = build_all([NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL])
     emit({"phase": "build", "seconds": build_s,
           "ptxas": {name: [ln for ln in log.splitlines() if "Used" in ln]
                     for name, log in logs.items()}})
@@ -621,24 +1070,34 @@ def main() -> int:
     # both main paths' shapes: batch 2 (detect) and batch 8 (evaluate)
     for b in (2, 8):
         nms, roi = check_nms(dev, b), check_roi_align(dev, b)
+    backward = check_roi_align_backward(dev, 2)
     path = main_path(dev)
     with tempfile.TemporaryDirectory() as tmp:
         reference_check(dev)
         reference_eval(dev, tmp)
         ev = eval_path(dev, tmp)
+        reference_train(dev, tmp)
+        convergence(dev, tmp)
+        tr = train_path(dev, tmp)
 
-    # times at the evaluate path's shapes (batch 8); launches of the
-    # evaluate run, with the detect run's beside them
+    # forward kernels: times at the evaluate path's shapes (batch 8),
+    # launches of the evaluate run; the backward: times at the train step's
+    # shapes (batch 2), launches of the train run; every path's launches
+    # beside them
     kernels = []
-    for name, source, replaces, key, k in (
-            ("nms_sorted_batched", "nms.cu", "nms_pallas.py:60", "nms", nms),
-            ("pyramid_roi_align", "roi_align.cu", "roi_patch_pallas.py:59", "roi_align", roi)):
+    for name, source, replaces, key, k, batch, main_run in (
+            ("nms_sorted_batched", "nms.cu", "nms_pallas.py:60", "nms", nms, 8, ev),
+            ("pyramid_roi_align", "roi_align.cu", "roi_patch_pallas.py:59", "roi_align", roi,
+             8, ev),
+            ("pyramid_roi_align_backward", "roi_align_backward.cu", "roi_align.py:650",
+             "roi_align_backward", backward, 2, tr)):
         kernels.append({
             "name": name, "route": "cuda", "source": f"sln_amodal_tpu_torch/csrc/{source}",
-            "replaces": f"sln_amodal_tpu/ops/{replaces}", "launches": ev["launches"][key],
-            "launches_by_path": {"detect": path["launches"][key],
-                                 "evaluate": ev["launches"][key]},
-            "batch": 8, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "replaces": f"sln_amodal_tpu/ops/{replaces}", "launches": main_run["launches"][key],
+            "launches_by_path": {"detect": path["launches"].get(key, 0),
+                                 "evaluate": ev["launches"].get(key, 0),
+                                 "train": tr["launches"][key]},
+            "batch": batch, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "device_ms": k["device_ms"]})
     emit({"kernels": kernels})

@@ -1,16 +1,20 @@
-"""Evaluate CLI of the port: the reference ``amodal_train.py`` surface
-(``amodal_train.py:507-675``) on :class:`sln_amodal_tpu_torch.infer.Detector`.
+"""Train / evaluate CLI of the port: the reference ``amodal_train.py``
+surface (``amodal_train.py:507-675``), as the JAX package's ``cli/train.py``.
 
 Usage:
+    python -m sln_amodal_tpu_torch.cli.train train --dataset /path/coco_amodal \\
+        --model coco --data_type COCOA [--stage heads --epochs 2]
     python -m sln_amodal_tpu_torch.cli.train evaluate --dataset /path/coco_amodal \\
         --model ./checkpoints/COCOA.pth --data_type COCOA --limit 100
 
-It runs on the card (``--device cuda``, the default) in float32: the port
-has no bfloat16 compute yet, so it does not follow the ``Config`` default
-``compute_dtype="bfloat16"`` that the JAX package's CLI evaluates in.
-The command ``train`` and the flags of later slices (``--data_parallel``,
-``--device_prep``, ``--coordinator``, ``--trace_dir``) exit with an error
-naming the ROADMAP item that ports them.
+Both run on the card (``--device cuda``, the default) in float32: the port
+has no bfloat16 compute yet, so they do not follow the ``Config`` default
+``compute_dtype="bfloat16"`` of the JAX package's CLI. ``train`` runs the
+reference's three-stage schedule, or one ``--stage`` for ``--epochs``, and
+saves a reference-layout ``.pth`` (which ``evaluate`` loads) and a
+``.pth.state`` resume file after every epoch. The flags of later slices
+(``--data_parallel``, ``--device_prep``, ``--coordinator``, ``--trace_dir``)
+exit with an error naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -23,21 +27,23 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
-from ..config import Config, inference_config
+from ..config import Config, inference_config, training_config
 from ..convert import init_params
 from ..data.dataset import AmodalCoco, AmodalDataset, DetectionResults
+from ..data.pipeline import TrainLoader
 from ..eval_amodal.amodal_eval import AmodalEval, evaluate_sweep
 from ..eval_amodal.coco_results import build_coco_results_crops
 from ..infer import Detector, PendingDetect
 from ..train import checkpoint as ckpt
-from ..utils.logging import log, progress_bar
+from ..train.optim import StageSchedule
+from ..train.trainer import Trainer
+from ..utils.logging import log, print_network, progress_bar
 
 DEFAULT_COCO_WEIGHTS = "./checkpoints/mask_rcnn_coco.pth"
 DEFAULT_GLM_WEIGHTS = "./checkpoints/deeplabv2.pth"
 
 # what later slices of the port bring, by ROADMAP item
 NOT_PORTED = {
-    "train": "the command 'train' is ROADMAP item 11 (training slice)",
     "device_prep": "--device_prep is ROADMAP item 12 (data path)",
     "data_parallel": "--data_parallel is ROADMAP item 13 (data parallelism)",
     "coordinator": "--coordinator is ROADMAP item 13 (data parallelism)",
@@ -47,10 +53,9 @@ NOT_PORTED = {
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Evaluate SLN-Amodal with the PyTorch port. Runs in float32 "
-                    "(bfloat16 compute is not ported yet).")
-    p.add_argument("command", metavar="<command>",
-                   help="'evaluate' ('train' is not ported yet)")
+        description="Train or evaluate SLN-Amodal with the PyTorch port. Runs in "
+                    "float32 (bfloat16 compute is not ported yet).")
+    p.add_argument("command", metavar="<command>", help="'train' or 'evaluate'")
     p.add_argument("--dataset", required=True, help="COCO-amodal dataset root")
     p.add_argument("--year", default="2014")
     p.add_argument("--model", required=False,
@@ -62,7 +67,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--glm_weights", default=DEFAULT_GLM_WEIGHTS)
     p.add_argument("--image_size", type=int, default=1024)
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the weights that no checkpoint provides")
+                   help="seed of the weights that no checkpoint provides, of the "
+                        "loader and of the target sampling")
+    p.add_argument("--batch_size", type=int, default=1, help="train: images per step")
+    p.add_argument("--steps_per_epoch", type=int, default=2500)
+    p.add_argument("--sticky_freeze", action="store_true",
+                   help="reproduce the reference's sticky layer freezing")
+    p.add_argument("--stage", default=None,
+                   help="train only this stage (heads/3+/4+/5+/all/mask) instead of "
+                        "the three-stage schedule")
+    p.add_argument("--epochs", type=int, default=1, help="epochs when --stage is given")
+    p.add_argument("--validate_steps", type=int, default=0,
+                   help="run N validation batches after each epoch")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest checkpoint in --logs: its weights, "
+                        "and the momentum and step of its .state file (mid-stage)")
     p.add_argument("--eval_batch", type=int, default=8,
                    help="images per device batch during evaluation")
     p.add_argument("--device", default="cuda",
@@ -76,13 +95,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Exit non-zero if ``args`` ask for something a later slice ports."""
-    asked = [NOT_PORTED["train"]] if args.command == "train" else []
-    asked += [msg for flag, msg in NOT_PORTED.items()
-              if flag != "train" and getattr(args, flag)]
+    asked = [msg for flag, msg in NOT_PORTED.items() if getattr(args, flag)]
     if asked:
         sys.exit("not ported yet: " + "; ".join(asked))
-    if args.command != "evaluate":
-        sys.exit(f"'{args.command}' is not recognized. Use 'evaluate'")
+    if args.command not in ("train", "evaluate"):
+        sys.exit(f"'{args.command}' is not recognized. Use 'train' or 'evaluate'")
 
 
 def eval_config(args) -> Config:
@@ -202,12 +219,100 @@ def run_evaluate(args) -> Evaluation:
                       elapsed)
 
 
-def main(argv=None) -> Evaluation:
+def train_config(args) -> Config:
+    """The training config at the model's full width, in float32."""
+    return training_config(image_size=args.image_size, batch_size=args.batch_size,
+                           steps_per_epoch=args.steps_per_epoch,
+                           name=args.data_type.lower(), compute_dtype="float32",
+                           param_dtype="float32")
+
+
+def load_train_dataset(args, subset: str) -> AmodalDataset:
+    dataset = AmodalDataset()
+    data_type = "COCO" if args.data_type == "COCOA" else "D2S"
+    dataset.load_amodal(args.dataset, subset, data_type=data_type, year=args.year)
+    dataset.prepare()
+    return dataset
+
+
+class Training(NamedTuple):
+    trainer: Optional[Trainer]        # None when nothing was left to train
+    checkpoints: List[str]            # the .pth written, in order
+
+
+def run_train(args) -> Training:
+    config = train_config(args)
+    resume_epoch, resume_state_path = 0, None
+    if args.resume:
+        last_path, last_epoch = ckpt.find_last(args.logs, config.name)
+        if last_path is not None:
+            log(f"Resuming from {last_path} (epoch {last_epoch})")
+            args.model = last_path
+            resume_epoch = last_epoch
+            if os.path.exists(last_path + ".state"):
+                resume_state_path = last_path + ".state"
+        else:
+            log(f"--resume: no checkpoint under {args.logs}/{config.name} — starting fresh")
+
+    # a resume at or past the end of the requested schedule trains nothing:
+    # say so before loading weights or building loaders
+    if args.stage:
+        total_epochs, advice = args.epochs, "raise --epochs"
+    else:
+        total_epochs = sum(e for _, _, e in StageSchedule(config.learning_rate).stages)
+        advice = "use --stage <stage> --epochs N"
+    if resume_epoch >= total_epochs:
+        log(f"--resume: checkpoint is at epoch {resume_epoch}, requested schedule ends "
+            f"at epoch {total_epochs} — nothing left to train ({advice}, or start a "
+            "fresh --logs dir)")
+        return Training(None, [])
+
+    train_ds = load_train_dataset(args, "train")
+    template = init_params(config, seed=args.seed, device=args.device)
+    state_dict = resolve_weights(args, config, template)
+    print_network(state_dict, "sln_amodal")
+    trainer = Trainer(config, state_dict, device=args.device)
+    loader = TrainLoader(train_ds, config, seed=args.seed)
+    val_loader = None
+    if args.validate_steps > 0:
+        val_loader = TrainLoader(load_train_dataset(args, "val"), config,
+                                 seed=args.seed + 1, augment=False)
+
+    written: List[str] = []
+
+    def save_epoch(epoch: int) -> None:
+        path = ckpt.save(trainer.model.state_dict(), args.logs, config.name, epoch)
+        ckpt.save_train_state(trainer.model, trainer.optimizer, trainer.step, args.logs,
+                              config.name, epoch)
+        written.append(path)
+        log(f"checkpoint: {path}")
+        if val_loader is not None:
+            val = trainer.validate(val_loader, steps=args.validate_steps)
+            log("  val " + " ".join(f"{k}={v:.4f}" for k, v in sorted(val.items())))
+
+    if args.stage:
+        trainer.epoch = resume_epoch
+        trainer.train_stage(loader, args.stage, config.learning_rate, args.epochs,
+                            steps_per_epoch=args.steps_per_epoch, seed=args.seed,
+                            on_epoch_end=save_epoch, resume_state_path=resume_state_path,
+                            start_epoch=resume_epoch)
+    else:
+        trainer.train(loader, steps_per_epoch=args.steps_per_epoch,
+                      sticky_freeze=args.sticky_freeze, on_epoch_end=save_epoch,
+                      resume_epoch=resume_epoch, resume_state_path=resume_state_path,
+                      seed=args.seed)
+    return Training(trainer, written)
+
+
+def main(argv=None):
+    """Runs the command; returns its :class:`Training` or :class:`Evaluation`."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     log(f"Command: {args.command}")
     log(f"Dataset: {args.dataset}")
     log(f"Model:   {args.model}")
+    if args.command == "train":
+        return run_train(args)
     return run_evaluate(args)
 
 

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds) and loaded
 with ``ctypes``. Libraries are cached under ``build/kernels/`` at the root of
-the checkout, keyed by a hash of the source and the flags, so an edited
-source is never served by a stale library.
+the checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is never
+served by a stale library.
 """
 
 from __future__ import annotations
@@ -64,8 +65,9 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
+        headers = b"".join(p.read_bytes() for p in sorted(SOURCE_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 

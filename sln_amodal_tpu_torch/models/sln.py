@@ -20,6 +20,16 @@ Reference quirks kept: at inference the GLM prior is cropped with pixel
 coordinates where normalized ones are expected
 (``glm_prior_pixel_coords_at_inference``), which zeroes it for interior
 boxes; ``glm_elide_at_inference`` skips DeepLab on the detect-only path.
+
+:meth:`SLNAmodal.train_step_outputs` is the training graph (the JAX
+package's ``train_step_outputs``, ``models/sln.py:310-387``): the GLM prior
+and the proposal layer run without gradient (JAX stops it there), the
+detection-target layer samples ``train_rois_per_image`` ROIs per image, and
+the classifier and the mask head run over the detached sampled ROIs, the
+GLM prior cropped with normalized coordinates. Gradients reach P2..P5
+through the RoIAlign kernel's backward. The constructor builds an
+inference graph (no parameter requires a gradient); the trainer turns
+gradients on for the parameters of its stage.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from torch import nn
 from ..config import Config
 from ..detect.detection import refine_detections
 from ..detect.proposal import proposal_layer_batched
+from ..detect.targets import RoiTargets, detection_target_layer
 from ..device import resolve_device, torch_dtype
 from ..ops.anchors import config_anchors
 from ..ops.roi_align import crop_and_resize
@@ -55,6 +66,15 @@ class DetectOutputs(NamedTuple):
     detections: torch.Tensor
     det_valid: torch.Tensor
     masks: torch.Tensor
+
+
+class TrainingOutputs(NamedTuple):
+    rpn_logits: torch.Tensor       # [B, A, 2]
+    rpn_deltas: torch.Tensor       # [B, A, 4]
+    targets: RoiTargets            # [B, T, ...]
+    class_logits: torch.Tensor     # [B, T, C] f32
+    bbox_deltas: torch.Tensor      # [B, T, C, 4] f32
+    mask_logits: torch.Tensor      # [B, T, 2m, 2m, C] f32
 
 
 class SLNAmodal(nn.Module):
@@ -207,3 +227,36 @@ class SLNAmodal(nn.Module):
         if detect_only:
             return DetectOutputs(detections, det_valid, masks)
         return InferenceOutputs(detections, det_valid, masks, global_label)
+
+    def train_step_outputs(self, images: torch.Tensor, gt_class_ids: torch.Tensor,
+                           gt_boxes: torch.Tensor, gt_masks: torch.Tensor, *,
+                           generator: Optional[torch.Generator] = None,
+                           pos_uniform: Optional[torch.Tensor] = None,
+                           neg_uniform: Optional[torch.Tensor] = None) -> TrainingOutputs:
+        """Training forward graph. images [B, H, W, 3] molded; gt_class_ids
+        [B, G]; gt_boxes [B, G, 4] normalized; gt_masks [B, G, L, H, W].
+        The target layer's random priorities come from ``generator``, or
+        are ``pos_uniform``/``neg_uniform`` [B, P] (P =
+        ``post_nms_rois_training``)."""
+        cfg = self.config
+        feats = self.fpn(images.to(torch_dtype(cfg.compute_dtype)))
+        rpn_logits, rpn_probs, rpn_deltas = self._rpn_all_levels(feats)
+        # no gradient through the prior or the proposals: both are targets
+        # of the heads, not a gradient path (the reference detaches the ROIs)
+        with torch.no_grad():
+            glm_prior, _ = self._glm_prior(images, need_label=False)
+            rois, roi_valid = self._proposals(rpn_probs, rpn_deltas,
+                                              cfg.post_nms_rois_training)
+            targets = detection_target_layer(
+                rois, roi_valid, gt_class_ids, gt_boxes, gt_masks,
+                train_rois=cfg.train_rois_per_image,
+                roi_positive_ratio=cfg.roi_positive_ratio,
+                mask_shape=cfg.mask_shape, bbox_std_dev=cfg.bbox_std_dev,
+                generator=generator, pos_uniform=pos_uniform, neg_uniform=neg_uniform)
+        sampled = targets.rois
+        levels = [p.contiguous() for p in feats[:4]]
+        class_logits, _, bbox_deltas = self._classifier_on(levels, sampled)
+        mask_logits = self._mask_on(levels, sampled, glm_prior, sampled)
+        return TrainingOutputs(rpn_logits=rpn_logits, rpn_deltas=rpn_deltas,
+                               targets=targets, class_logits=class_logits,
+                               bbox_deltas=bbox_deltas, mask_logits=mask_logits)

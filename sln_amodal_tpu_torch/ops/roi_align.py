@@ -9,7 +9,9 @@ extrapolation value outside the map. FPN levels follow the FPN paper's rule.
   the CUDA kernel (``csrc/roi_align.cu``) computes the same geometry itself,
   bit for bit as the card computes these PyTorch ops.
 - :func:`pyramid_roi_align_plain` — port of ``pyramid_roi_align_gather_batched``,
-  the exact oracle of the TPU RoIAlign kernel.
+  the exact oracle of the TPU RoIAlign kernel;
+  :func:`pyramid_roi_align_backward_plain` its gradient into the levels, the
+  JAX package's custom VJP (the oracle of ``csrc/roi_align_backward.cu``).
 - :func:`crop_and_resize` — single-map crop (the GLM-prior crop of the mask
   head), computed outside any kernel in the JAX package too.
 
@@ -148,6 +150,72 @@ def pyramid_roi_align_plain(
     out = torch.where(valid, out, torch.full((), extrapolation_value,
                                              dtype=flat.dtype, device=dev))
     return out.reshape(b, n, *out.shape[1:])
+
+
+def _axis_taps(lo: torch.Tensor, hi: torch.Tensor, lerp: torch.Tensor,
+               valid: torch.Tensor):
+    """The two nonzero entries of each row of the JAX package's one-hot
+    ``_axis_weights``: (lo, hi) indices and float32 weights, (1 - lerp) at
+    lo and lerp at hi, their sum at lo where lo == hi, zero where the
+    sample is invalid."""
+    same = lo == hi
+    w_lo = torch.where(same, (1.0 - lerp) + lerp, 1.0 - lerp)
+    w_hi = torch.where(same, torch.zeros_like(lerp), lerp)
+    v = valid.to(F32)
+    return lo.long(), hi.long(), w_lo * v, w_hi * v
+
+
+def pyramid_roi_align_backward_plain(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    shapes: Sequence[Tuple[int, int, int]],
+    crop_size: Tuple[int, int],
+    image_shape: Tuple[int, int],
+    dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradient of :func:`pyramid_roi_align_plain` into each level.
+
+    Port of the custom VJP of ``pyramid_roi_align_batched`` in the JAX
+    package (``ops/roi_align.py:650-673``): grad [B, N, ch, cw, C] is cast
+    to float32 whatever the level dtype, contracted with the x weights first
+    (a = sum_j xw * g) and then with the y weights (dF = sum_{n,i} yw * a),
+    both in float32, over the ROIs of each level; invalid samples and
+    samples of other levels weigh zero. Returns one [B, H_l, W_l, C] tensor
+    per level of ``shapes`` ((H_l, W_l, C) each), cast to ``dtype``. The
+    boxes get no gradient. The contractions are ``index_add_`` over the two
+    nonzero taps of each one-hot weight row, the same products as the
+    einsums', summed in another order."""
+    b, n = boxes.shape[:2]
+    ch, cw = crop_size
+    c = grad.shape[-1]
+    dev = grad.device
+    g32 = grad.to(F32).reshape(b * n, ch, cw, c)
+    (lvl_idx, valid_y, valid_x, top, bottom, y_lerp, left, right,
+     x_lerp) = sample_geometry(shapes, boxes.reshape(b * n, 4), crop_size, image_shape)
+    y_lo, y_hi, yw_lo, yw_hi = _axis_taps(top, bottom, y_lerp, valid_y)
+    x_lo, x_hi, xw_lo, xw_hi = _axis_taps(left, right, x_lerp, valid_x)
+    image_of = torch.arange(b, device=dev).repeat_interleave(n)
+    grads = []
+    for level, (hl, wl, _) in enumerate(shapes):
+        rows = torch.nonzero(lvl_idx == level).reshape(-1)
+        df = torch.zeros((b * hl, wl * c), dtype=F32, device=dev)
+        k = int(rows.numel())
+        if k:
+            # a[r, x, i, :] = sum_j xw[r, j, x] * g[r, i, j, :]
+            src = g32[rows].permute(0, 2, 1, 3)                     # [k, cw, ch, C]
+            base = (torch.arange(k, device=dev) * wl)[:, None]
+            a = torch.zeros((k * wl, ch, c), dtype=F32, device=dev)
+            for idx, w in ((x_lo, xw_lo), (x_hi, xw_hi)):
+                a.index_add_(0, (base + idx[rows]).reshape(-1),
+                             (w[rows][:, :, None, None] * src).reshape(k * cw, ch, c))
+            a = a.reshape(k, wl, ch, c).permute(0, 2, 1, 3)          # [k, ch, wl, C]
+            # dF[b, y, :, :] += yw[r, i, y] * a[r, i]
+            img = (image_of[rows] * hl)[:, None]
+            for idx, w in ((y_lo, yw_lo), (y_hi, yw_hi)):
+                df.index_add_(0, (img + idx[rows]).reshape(-1),
+                              (w[rows][:, :, None, None] * a).reshape(k * ch, wl * c))
+        grads.append(df.reshape(b, hl, wl, c).to(dtype))
+    return tuple(grads)
 
 
 def crop_and_resize(

@@ -1,13 +1,25 @@
-"""Batched FPN RoIAlign: the CUDA kernel's wrapper.
+"""Batched FPN RoIAlign and its gradient: the CUDA kernels' wrappers.
 
-A CUDA tensor goes to the hand-written kernel ``csrc/roi_align.cu`` (the port
-of the TPU kernel ``sln_amodal_tpu/ops/roi_patch_pallas.py::_patch_kernel``);
-a CPU tensor goes to the plain version :func:`.roi_align.pyramid_roi_align_plain`.
-There is no fallback from one to the other. The kernel computes its own
-sampling geometry from the boxes (the plain version's
-:func:`.roi_align.sample_geometry`, bit for bit as the card computes it), so
-a call is one launch and the wrapper adds only its checks and the output's
-allocation.
+:func:`pyramid_roi_align` is a ``torch.autograd.Function``
+(:class:`PyramidRoIAlign`):
+
+- forward: a CUDA tensor goes to the hand-written kernel
+  ``csrc/roi_align.cu`` (the port of the TPU kernel
+  ``sln_amodal_tpu/ops/roi_patch_pallas.py::_patch_kernel``), a CPU tensor
+  to the plain version :func:`.roi_align.pyramid_roi_align_plain`;
+- backward (the JAX package's custom VJP, ``ops/roi_align.py:650-673``): a
+  CUDA tensor goes to the deterministic kernel
+  ``csrc/roi_align_backward.cu``, a CPU tensor to
+  :func:`.roi_align.pyramid_roi_align_backward_plain`; the boxes get no
+  gradient (the JAX VJP gives zeros, and the model detaches the ROIs).
+
+There is no fallback from a kernel to its plain version. Both kernels
+compute their own sampling geometry from the boxes (the plain version's
+:func:`.roi_align.sample_geometry`, bit for bit as the card computes it,
+from the shared ``csrc/roi_align_geometry.cuh``), so each call is one launch
+and the wrapper adds only its checks and the outputs' allocation. Under
+``torch.no_grad``, or when no level requires a gradient, the forward is
+the one launch and nothing is saved for a backward.
 """
 
 from __future__ import annotations
@@ -21,15 +33,24 @@ import numpy as np
 import torch
 
 from ..cuda_build import DOUBLE, FLOAT, INT, VOIDP, CudaKernel
-from .roi_align import pyramid_roi_align_plain
+from .roi_align import pyramid_roi_align_backward_plain, pyramid_roi_align_plain
 
 ROI_ALIGN_KERNEL = CudaKernel("roi_align.cu", {
     "roi_align_batched": (VOIDP, VOIDP, VOIDP, INT, INT, INT, INT, INT, INT,
                           VOIDP, INT, DOUBLE, FLOAT, FLOAT, DOUBLE, INT, VOIDP,
                           VOIDP),
 })
+ROI_ALIGN_BACKWARD_KERNEL = CudaKernel("roi_align_backward.cu", {
+    "roi_align_backward_batched": (VOIDP, VOIDP, VOIDP, INT, INT, INT, INT, INT, INT,
+                                   VOIDP, INT, DOUBLE, FLOAT, FLOAT, VOIDP, INT, INT,
+                                   INT, VOIDP),
+})
 
 MAX_LEVELS = 4
+# the backward kernel's block: 256 threads, one row buffer of float32
+# [widest level, channel chunk] in shared memory, ROIs scanned 256 at a time
+BACKWARD_THREADS = 256
+BACKWARD_SMEM_BYTES = 160 * 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,21 +70,8 @@ def _step_reciprocal(out_size: int) -> float:
     return float(np.float32(1.0) / np.float32(out_size - 1)) if out_size > 1 else 0.0
 
 
-def pyramid_roi_align(
-    features: Sequence[torch.Tensor],
-    boxes: torch.Tensor,
-    crop_size: Tuple[int, int],
-    image_shape: Tuple[int, int],
-    extrapolation_value: float = 0.0,
-) -> torch.Tensor:
-    """Multi-level RoIAlign: features [B, H_l, W_l, C] (P2..P5, NHWC,
-    contiguous, 16-byte aligned, float32 or float64; on the card C a
-    multiple of 4 in float32, of 2 in float64), boxes [B, N, 4] normalized (float32 or
-    float64, whatever the features' dtype). Returns [B, N, ch, cw, C]."""
-    features = list(features)
-    if boxes.device.type == "cpu":
-        return pyramid_roi_align_plain(
-            features, boxes, crop_size, image_shape, extrapolation_value)
+def _check_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor) -> None:
+    """Raise on what the kernels do not take."""
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
     if not 1 <= len(features) <= MAX_LEVELS:
@@ -84,13 +92,32 @@ def pyramid_roi_align(
             raise ValueError(f"level must be [B={b}, H, W, C={c}], got {tuple(f.shape)}")
         if not f.is_contiguous():
             raise ValueError("levels must be contiguous NHWC tensors")
+    # the kernels move channels as 16-byte vectors
+    vec = 16 // features[0].element_size()
+    if c % vec or any(f.data_ptr() % 16 for f in features):
+        raise ValueError(f"C must be a multiple of {vec} and the levels 16-byte aligned")
+
+
+def roi_align_forward(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    crop_size: Tuple[int, int],
+    image_shape: Tuple[int, int],
+    extrapolation_value: float = 0.0,
+) -> torch.Tensor:
+    """The forward without autograd: the kernel on the card, the plain
+    version on the CPU. Returns [B, N, ch, cw, C]."""
+    features = list(features)
+    if boxes.device.type == "cpu":
+        return pyramid_roi_align_plain(
+            features, boxes, crop_size, image_shape, extrapolation_value)
+    _check_inputs(features, boxes)
+    b, n = boxes.shape[:2]
+    c = features[0].shape[-1]
+    dtype = features[0].dtype
     ch, cw = crop_size
     boxes = boxes.contiguous()
     out = torch.empty((b, n, ch, cw, c), dtype=dtype, device=boxes.device)
-    # the kernel moves channels as 16-byte vectors
-    vec = 16 // out.element_size()
-    if c % vec or any(t.data_ptr() % 16 for t in features + [out]):
-        raise ValueError(f"C must be a multiple of {vec} and the levels 16-byte aligned")
     if b * n == 0 or c == 0:
         return out
     ptrs = (ctypes.c_void_p * MAX_LEVELS)(*[f.data_ptr() for f in features])
@@ -105,3 +132,106 @@ def pyramid_roi_align(
         out.data_ptr())
     ROI_ALIGN_KERNEL.launches += 1
     return out
+
+
+def backward_chunk(c: int, w_max: int, ch: int, cw: int) -> Tuple[int, int]:
+    """(channels per block, ROIs per scan pass) of the backward kernel: up to
+    64 channels (a power of two dividing the block), halved until the row
+    buffer, the column taps and the pass's entries fit the shared memory."""
+    rois = max(1, min(BACKWARD_THREADS, 4096 // max(ch, 1)))
+    chunk = min(64, 1 << max(0, (c - 1).bit_length()))
+    fixed = cw * 16 + rois * 12 + rois * ch * 8
+    while chunk > 1 and w_max * chunk * 4 + fixed > BACKWARD_SMEM_BYTES:
+        chunk //= 2
+    if w_max * chunk * 4 + fixed > BACKWARD_SMEM_BYTES:
+        raise ValueError(f"a level {w_max} wide with crop {ch}x{cw} does not fit the "
+                         "backward kernel's shared memory")
+    return chunk, rois
+
+
+def pyramid_roi_align_backward(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    shapes: Sequence[Tuple[int, int, int]],
+    crop_size: Tuple[int, int],
+    image_shape: Tuple[int, int],
+    dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradient into each level ([B, H_l, W_l, C] of ``dtype`` for each
+    (H_l, W_l, C) of ``shapes``) from grad [B, N, ch, cw, C]: the kernel on
+    the card (deterministic: bit-equal across launches), the plain version
+    on the CPU."""
+    if boxes.device.type == "cpu":
+        return pyramid_roi_align_backward_plain(grad, boxes, shapes, crop_size,
+                                                image_shape, dtype)
+    b, n = boxes.shape[:2]
+    c = shapes[0][-1]
+    ch, cw = crop_size
+    grads = [torch.empty((b, h, w, c), dtype=dtype, device=boxes.device)
+             for h, w, _ in shapes]
+    if b == 0 or c == 0:
+        return tuple(grads)
+    _check_inputs(grads, boxes)
+    if tuple(grad.shape) != (b, n, ch, cw, c) or grad.dtype != dtype:
+        raise ValueError(f"grad must be [{b}, {n}, {ch}, {cw}, {c}] of {dtype}, got "
+                         f"{tuple(grad.shape)} of {grad.dtype}")
+    if n == 0:
+        for g in grads:
+            g.zero_()
+        return tuple(grads)
+    grad = grad.contiguous()
+    if grad.data_ptr() % 16:
+        raise ValueError("grad must be 16-byte aligned")
+    boxes = boxes.contiguous()
+    chunk, rois = backward_chunk(c, max(w for _, w, _ in shapes), ch, cw)
+    ptrs = (ctypes.c_void_p * MAX_LEVELS)(*[g.data_ptr() for g in grads])
+    heights = (ctypes.c_int * MAX_LEVELS)(*[int(h) for h, _, _ in shapes])
+    widths = (ctypes.c_int * MAX_LEVELS)(*[int(w) for _, w, _ in shapes])
+    ROI_ALIGN_BACKWARD_KERNEL.launch(
+        "roi_align_backward_batched", boxes.device, ctypes.addressof(ptrs),
+        ctypes.addressof(heights), ctypes.addressof(widths), len(shapes), c, b, n,
+        ch, cw, boxes.data_ptr(), int(boxes.dtype == torch.float64),
+        level_scale_reciprocal(tuple(image_shape), boxes.dtype), _step_reciprocal(ch),
+        _step_reciprocal(cw), grad.data_ptr(), int(dtype == torch.float64), chunk, rois)
+    ROI_ALIGN_BACKWARD_KERNEL.launches += 1
+    return tuple(grads)
+
+
+class PyramidRoIAlign(torch.autograd.Function):
+    """RoIAlign with the port's backward: the forward kernel (or plain
+    version) forward, the backward kernel (or plain version) backward, no
+    gradient into the boxes."""
+
+    @staticmethod
+    def forward(ctx, boxes, crop_size, image_shape, extrapolation_value, *features):
+        out = roi_align_forward(features, boxes, crop_size, image_shape,
+                                extrapolation_value)
+        ctx.save_for_backward(boxes)
+        ctx.shapes = [tuple(int(s) for s in f.shape[1:]) for f in features]
+        ctx.dtype = features[0].dtype
+        ctx.crop_size = tuple(crop_size)
+        ctx.image_shape = tuple(image_shape)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (boxes,) = ctx.saved_tensors
+        grads = pyramid_roi_align_backward(
+            grad.contiguous(), boxes, ctx.shapes, ctx.crop_size, ctx.image_shape, ctx.dtype)
+        return (None, None, None, None, *grads)
+
+
+def pyramid_roi_align(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    crop_size: Tuple[int, int],
+    image_shape: Tuple[int, int],
+    extrapolation_value: float = 0.0,
+) -> torch.Tensor:
+    """Multi-level RoIAlign: features [B, H_l, W_l, C] (P2..P5, NHWC,
+    contiguous, 16-byte aligned, float32 or float64; on the card C a
+    multiple of 4 in float32, of 2 in float64), boxes [B, N, 4] normalized
+    (float32 or float64, whatever the features' dtype). Returns
+    [B, N, ch, cw, C], differentiable in the features."""
+    return PyramidRoIAlign.apply(boxes, tuple(crop_size), tuple(image_shape),
+                                 float(extrapolation_value), *features)

@@ -87,15 +87,16 @@ def stage_times(det: Detector, x: torch.Tensor, windows: torch.Tensor) -> dict:
             for i, (name, ev) in enumerate(events[1:])}
 
 
-def kernel_times(det: Detector, images) -> dict:
-    """Device time by kernel name over one ``dispatch``, and the busy share
-    (the union of kernel intervals over the span from the first kernel's
-    start to the last one's end)."""
+def kernel_times(fn, match=()) -> dict:
+    """Device time by kernel name over one call of ``fn``, and the busy
+    share (the union of kernel intervals over the span from the first
+    kernel's start to the last one's end); ``match``: name fragments whose
+    kernels' ms and launches are summed under ``matched``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        det.dispatch(images)
+        fn()
         torch.cuda.synchronize()
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
              if e.device_type == DeviceType.CUDA]
@@ -115,9 +116,11 @@ def kernel_times(det: Detector, images) -> dict:
     busy += cur_e - cur_s
     span = max(e for _, e, _ in spans) - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    matched = {m: {"ms": sum((e - s) / 1e3 for s, e, n in spans if m in n),
+                   "launches": sum(m in n for _, _, n in spans)} for m in match}
     return {"kernel_ms_total": sum(by_name.values()), "span_ms": span / 1e3,
             "busy_share": busy / span, "n_kernel_launches": len(spans),
-            "top": [{"name": n[:120], "ms": t} for n, t in top[:20]]}
+            "top": [{"name": n[:120], "ms": t} for n, t in top[:20]], "matched": matched}
 
 
 def main() -> int:
@@ -156,7 +159,7 @@ def main() -> int:
     print(json.dumps({"stages": {k: statistics.median(v) for k, v in stages.items()},
                       "batch": args.batch, "repeats": args.repeats,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
-    print(json.dumps({"kernels": kernel_times(det, images)}), flush=True)
+    print(json.dumps({"kernels": kernel_times(lambda: det.dispatch(images))}), flush=True)
     return 0
 
 

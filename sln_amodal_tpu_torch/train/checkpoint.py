@@ -11,7 +11,10 @@ takes the two other files the reference uses:
   reference re-creates after loading it (``amodal_train.py:606-610``) from
   the template.
 
-Checkpoints the port writes are ``{log_dir}/{name}/sln_amodal_{name}_{epoch:04d}.pth``.
+Checkpoints the port writes are ``{log_dir}/{name}/sln_amodal_{name}_{epoch:04d}.pth``,
+and beside each, for a resume in the middle of a stage, ``<that>.state``
+(:func:`save_train_state`: the state_dict, the SGD momentum buffers and the
+stage's step counter, in torch format).
 """
 
 from __future__ import annotations
@@ -44,6 +47,26 @@ def save(state_dict: Mapping[str, torch.Tensor], log_dir: str, name: str, epoch:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
     return path
+
+
+def save_train_state(model, optimizer, step: int, log_dir: str, name: str,
+                     epoch: int) -> str:
+    """The full resume state of a stage at the end of ``epoch``: the model's
+    state_dict, the optimizer's (momentum buffers) and the step counter."""
+    path = checkpoint_path(log_dir, name, epoch) + ".state"
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                "optimizer": optimizer.state_dict(), "step": int(step)}, path)
+    return path
+
+
+def restore_train_state(path: str, model, optimizer) -> int:
+    """Load a ``.state`` file into ``model`` and ``optimizer`` (the same
+    stage's, built over the same parameters); returns the step counter."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(state["model"], strict=True)
+    optimizer.load_state_dict(state["optimizer"])
+    return int(state["step"])
 
 
 def find_last(log_dir: str, name: str) -> Tuple[Optional[str], Optional[int]]:

@@ -4,7 +4,10 @@ The port's own copy of the JAX package's ``utils/image.py``, with the
 reference's numerics:
 
 - images are squash-resized to ``image_size`` squared with PIL bilinear
-  (the reference's ``scipy.misc.imresize`` is PIL underneath);
+  (the reference's ``scipy.misc.imresize`` is PIL underneath); training
+  samples take the same resize (``resize_image``), nearest-neighbour zoomed
+  layer masks (``resize_layer_masks``) and the mean pixel subtracted on the
+  host (``mold_image``);
 - the mean pixel is subtracted on the device, after a uint8 upload
   (:class:`sln_amodal_tpu_torch.infer.Detector`);
 - ``unmold_crop`` reproduces ``scipy.misc.imresize`` on a float mask:
@@ -42,6 +45,36 @@ def bytescale(data: np.ndarray) -> np.ndarray:
     scale = 255.0 / cscale
     bytedata = (data - cmin) * scale
     return (np.clip(bytedata, 0, 255) + 0.5).astype(np.uint8)
+
+
+def imresize_float(arr: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """scipy.misc.imresize on a float array: bytescale, PIL bilinear, a
+    uint8 result (the caller divides by 255)."""
+    return pil_resize_uint8(bytescale(arr), size_hw)
+
+
+def resize_image(image: np.ndarray, image_size: int):
+    """Squash-resize to (image_size, image_size): (resized, window, scale,
+    padding) with the reference's conventions."""
+    h, w = image.shape[:2]
+    resized = pil_resize_uint8(image.astype(np.uint8), (image_size, image_size))
+    window = (0, 0, image_size, image_size)
+    scale = (image_size / h, image_size / w)
+    padding = [(0, 0), (0, 0), (0, 0)]
+    return resized, window, scale, padding
+
+
+def resize_layer_masks(masks: np.ndarray, scale) -> np.ndarray:
+    """Nearest-neighbour zoom of [H, W, L, N] layer masks (the reference's
+    ``utils.py:358-362``)."""
+    import scipy.ndimage
+
+    return scipy.ndimage.zoom(masks, zoom=[scale[0], scale[1], 1, 1], order=0)
+
+
+def mold_image(image: np.ndarray, mean_pixel) -> np.ndarray:
+    """float32 image minus the mean pixel."""
+    return image.astype(np.float32) - np.asarray(mean_pixel, np.float32)
 
 
 def mold_inputs(images: List[np.ndarray], config):

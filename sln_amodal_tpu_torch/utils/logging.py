@@ -1,11 +1,13 @@
 """Logging helpers of the CLIs: messages with array stats, a progress bar,
-and the parameter count of a state_dict (the reference's ad-hoc prints,
-``modal/Functions.py:17-48``, ``modal/networks.py:80-85``)."""
+the parameter count of a state_dict (the reference's ad-hoc prints,
+``modal/Functions.py:17-48``, ``modal/networks.py:80-85``) and a step timer
+for the training loop."""
 
 from __future__ import annotations
 
 import sys
-from typing import Mapping, Optional
+import time
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 
@@ -44,3 +46,26 @@ def print_network(state_dict: Mapping, name: str = "model") -> int:
     n = count_params(state_dict)
     print(f"{name}: total number of parameters: {n}")
     return n
+
+
+class StepTimer:
+    """Host seconds between successive ``tick`` calls of a loop."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.history: List[float] = []
+
+    def tick(self) -> float:
+        now = time.perf_counter()
+        dt = now - self.t0
+        self.t0 = now
+        self.history.append(dt)
+        return dt
+
+    def summary(self) -> Dict[str, float]:
+        if not self.history:
+            return {}
+        arr = np.asarray(self.history)
+        return {"steps": len(arr), "mean_s": float(arr.mean()),
+                "p50_s": float(np.percentile(arr, 50)),
+                "p95_s": float(np.percentile(arr, 95))}

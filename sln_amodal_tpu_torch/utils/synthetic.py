@@ -1,4 +1,10 @@
-"""A deterministic synthetic checkpoint for tests and the eval smoke.
+"""Deterministic synthetic checkpoints for tests and the smoke.
+
+:func:`rpn_biased_variables` is the training start of the convergence
+check: only the RPN is biased (zero deltas, equal foreground scores, so
+the proposals tile the image with anchors and positives reach the heads
+from the first step), and the classifier's final layers are scaled by
+0.01 (near-zero predictions, well-scaled first gradients).
 
 :func:`detection_biased_variables` biases a state_dict so that inference
 emits real detections without training, with the JAX package's recipe:
@@ -41,4 +47,20 @@ def detection_biased_variables(state_dict: Dict[str, torch.Tensor]) -> Dict[str,
     deconv[0] = 1.0
     deconv[0, :, 1, 1] = 0.5
     sd["mask.conv5.weight"][1:, 0, 0, 0] = 10.0
+    return sd
+
+
+def rpn_biased_variables(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A copy of ``state_dict`` with the JAX package's
+    ``utils/synthetic.py::rpn_biased_variables`` recipe: the RPN's box and
+    class convs zero, a (bg, fg) = (0, 1) class bias for every anchor
+    (anchor-major channel pairs), and the classifier's two final linear
+    weights times 0.01 (their biases kept)."""
+    sd = {k: v.clone() for k, v in state_dict.items()}
+    for key in ("rpn.conv_bbox", "rpn.conv_class"):
+        sd[f"{key}.weight"].zero_()
+        sd[f"{key}.bias"].zero_()
+    sd["rpn.conv_class.bias"][1::2] = 1.0
+    for key in ("classifier.linear_class", "classifier.linear_bbox"):
+        sd[f"{key}.weight"] *= 0.01
     return sd

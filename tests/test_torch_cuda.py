@@ -16,9 +16,11 @@ from sln_amodal_tpu_torch.convert import init_params
 from sln_amodal_tpu_torch.infer import Detector
 from sln_amodal_tpu_torch.ops.nms import nms_sorted_batched_plain
 from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL, nms_sorted_batched
-from sln_amodal_tpu_torch.ops.roi_align import pyramid_roi_align_plain
+from sln_amodal_tpu_torch.ops.roi_align import (pyramid_roi_align_backward_plain,
+                                                pyramid_roi_align_plain)
 from sln_amodal_tpu_torch.ops.roi_align_cuda import (
-    ROI_ALIGN_KERNEL, level_scale_reciprocal, pyramid_roi_align)
+    ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_KERNEL, level_scale_reciprocal,
+    pyramid_roi_align, pyramid_roi_align_backward)
 from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -198,6 +200,60 @@ def test_roi_align_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         pyramid_roi_align(feats, boxes.half(), (7, 7), (1024, 1024))
     with pytest.raises(ValueError, match="multiple of 4"):
         pyramid_roi_align([f[..., :6].contiguous() for f in feats], boxes, (7, 7), (1024, 1024))
+
+
+ROI_CASES = ["pool7", "pool16", "level_boundaries", "integer_samples", "crop_1x1",
+             "one_level", "two_levels", "three_levels", "outside", "empty"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ROI_CASES)
+def test_roi_align_backward_kernel_matches_plain(cuda_device, dtype, case):
+    """The backward kernel against the plain backward on the same card:
+    within 1e-5 of the largest gradient (both sum in float32, in other
+    orders), one launch per call (none without boxes), bit-equal across
+    launches."""
+    feats, boxes, crop, image = _roi_case(case, dtype)
+    boxes = boxes.to(cuda_device, dtype)
+    b, n = boxes.shape[:2]
+    g = torch.Generator().manual_seed(3)
+    grad = torch.randn((b, n, *crop, feats[0].shape[-1]), generator=g).to(cuda_device, dtype)
+    shapes = [tuple(f.shape[1:]) for f in feats]
+    before = ROI_ALIGN_BACKWARD_KERNEL.launches
+    out = pyramid_roi_align_backward(grad, boxes, shapes, crop, image, dtype)
+    again = pyramid_roi_align_backward(grad, boxes, shapes, crop, image, dtype)
+    assert ROI_ALIGN_BACKWARD_KERNEL.launches == before + 2 * (n > 0)
+    ref = pyramid_roi_align_backward_plain(grad, boxes, shapes, crop, image, dtype)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref) if n else 0.0
+    for o, a, r in zip(out, again, ref):
+        assert o.shape == r.shape and o.dtype == dtype
+        assert torch.equal(o, a)
+        assert float((o - r).abs().max()) <= 1e-5 * max(scale, 1.0)
+    if n == 0:
+        assert all(float(o.abs().max()) == 0.0 for o in out)
+
+
+def test_roi_align_autograd_uses_both_kernels(cuda_device):
+    """Through autograd: the forward kernel once, the backward kernel once,
+    no gradient into the boxes; the levels' gradient equals the backward
+    wrapper's."""
+    feats = [f.requires_grad_() for f in _pyramid(2, 64, torch.float32)]
+    boxes = _boxes(2, 100).to(cuda_device, torch.float32)
+    grad = torch.randn((2, 100, 16, 16, 64), device=cuda_device)
+    counts = ROI_ALIGN_KERNEL.launches, ROI_ALIGN_BACKWARD_KERNEL.launches
+    out = pyramid_roi_align(feats, boxes, (16, 16), (1024, 1024))
+    out.backward(grad)
+    assert (ROI_ALIGN_KERNEL.launches, ROI_ALIGN_BACKWARD_KERNEL.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    ref = pyramid_roi_align_backward(grad, boxes, [tuple(f.shape[1:]) for f in feats],
+                                     (16, 16), (1024, 1024), torch.float32)
+    for f, r in zip(feats, ref):
+        assert torch.equal(f.grad, r)
+    with torch.no_grad():
+        before = ROI_ALIGN_BACKWARD_KERNEL.launches
+        assert not pyramid_roi_align(feats, boxes, (7, 7), (1024, 1024)).requires_grad
+        assert ROI_ALIGN_BACKWARD_KERNEL.launches == before
 
 
 def test_detector_on_card_matches_cpu(cuda_device):

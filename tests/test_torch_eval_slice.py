@@ -211,7 +211,7 @@ def test_test_images_cli_writes_pickled_results(weights, reduced_cli, tmp_path, 
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train"], "item 11"), (["evaluate", "--device_prep"], "item 12"),
+    (["train", "--device_prep"], "item 12"), (["evaluate", "--device_prep"], "item 12"),
     (["evaluate", "--data_parallel"], "item 13"),
     (["evaluate", "--coordinator", "host:1234"], "item 13"),
     (["evaluate", "--trace_dir", "/tmp/tb"], "item 14"),
@@ -253,4 +253,4 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25
+    assert int(proc.stdout.split()[-1]) >= 32
