@@ -39,7 +39,7 @@ from .detect.targets import detection_target_layer
 from .models.sln import SLNAmodal, TrainingOutputs
 from .ops.anchors import config_anchors
 from .profile_infer import kernel_times
-from .train.optim import make_optimizer
+from .train.optim import StagedSGD
 from .train.trainer import batched_losses, to_device, train_step
 from .utils.synthetic import rpn_biased_variables
 
@@ -140,7 +140,7 @@ def main() -> int:
     for stage in ("heads", "all"):
         model = SLNAmodal(cfg, device=dev)
         model.load_state_dict(sd)
-        optimizer = make_optimizer(model, stage, cfg.learning_rate)
+        optimizer = StagedSGD(model, stage, cfg.learning_rate)
         generator = torch.Generator().manual_seed(args.seed)
         train_step(model, optimizer, to_device(batch_np, dev), generator)   # warm-up
         torch.cuda.synchronize()

@@ -111,10 +111,11 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
 
 
 class StagedSGD:
-    """One stage's optimizer over ``model``: sets ``requires_grad`` by the
-    stage's mask (the rest of the model takes no gradient), and steps as the
-    JAX package's optax chain does. A new stage takes a new one, with fresh
-    momentum."""
+    """One stage's optimizer over ``model`` (the JAX package's
+    ``make_optimizer``: clip(5.0) -> + wd * p -> momentum -> -lr): sets
+    ``requires_grad`` by the stage's mask (the rest of the model takes no
+    gradient), and steps as the optax chain does. A new stage takes a new
+    one, with fresh momentum."""
 
     def __init__(self, model: nn.Module, stage: Stage, learning_rate: float,
                  momentum: float = 0.9, weight_decay: float = 1e-4,
@@ -149,10 +150,3 @@ class StagedSGD:
 
     def load_state_dict(self, state: dict) -> None:
         self.sgd.load_state_dict(state)
-
-
-def make_optimizer(model: nn.Module, stage: Stage, learning_rate: float,
-                   momentum: float = 0.9, weight_decay: float = 1e-4,
-                   clip_norm: float = 5.0) -> StagedSGD:
-    """clip(5.0) -> + wd * p -> momentum -> -lr, over ``stage``'s parameters."""
-    return StagedSGD(model, stage, learning_rate, momentum, weight_decay, clip_norm)

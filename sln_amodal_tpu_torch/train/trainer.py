@@ -25,7 +25,7 @@ from ..models.sln import SLNAmodal, TrainingOutputs
 from ..utils.logging import StepTimer, log
 from . import checkpoint as ckpt_lib
 from . import losses as losses_lib
-from .optim import Stage, StagedSGD, StageSchedule, make_optimizer
+from .optim import Stage, StagedSGD, StageSchedule
 
 BATCH_KEYS = ("images", "rpn_match", "rpn_deltas", "gt_class_ids", "gt_boxes", "gt_masks")
 
@@ -105,7 +105,7 @@ class Trainer:
                     epochs: int, steps_per_epoch: Optional[int] = None, seed: int = 0,
                     on_epoch_end: Optional[Callable[[int], None]] = None,
                     accumulate_steps: int = 1, resume_state_path: Optional[str] = None,
-                    start_epoch: int = 0, log_every: int = 50) -> Dict[str, float]:
+                    start_epoch: int = 0) -> Dict[str, float]:
         """Epochs ``start_epoch .. epochs - 1`` of one stage, with a fresh
         optimizer (momentum zero, step 0) unless ``resume_state_path`` (a
         ``.state`` file of :func:`checkpoint.save_train_state`) restores the
@@ -117,7 +117,7 @@ class Trainer:
                 "ported: ROADMAP item 13 (data parallelism) brings it")
         cfg = self.config
         steps = steps_per_epoch or cfg.steps_per_epoch
-        self.optimizer = make_optimizer(
+        self.optimizer = StagedSGD(
             self.model, stage, learning_rate, momentum=cfg.learning_momentum,
             weight_decay=cfg.weight_decay, clip_norm=cfg.gradient_clip_norm)
         self.step = 0
@@ -135,7 +135,7 @@ class Trainer:
                 batch = to_device(next(it), self.device)
                 losses = train_step(self.model, self.optimizer, batch, generator)
                 self.step += 1
-                if step % log_every == 0 or step == steps - 1:
+                if step % 50 == 0 or step == steps - 1:
                     last = {k: float(v) for k, v in losses.items()}
                     dt = timer.tick()
                     log(f"  step {step + 1}/{steps} "

@@ -4,8 +4,8 @@
   tree, carried to the port's names through ``convert.params_from_jax``,
   equals the port's ``trainable_mask`` over its parameters, for every stage
   and for the three-stage schedule with and without ``sticky_freeze``.
-- One update (two steps, so the momentum trace is used) of
-  ``make_optimizer``'s chain (zero the frozen grads, clip by global norm 5,
+- One update (two steps, so the momentum trace is used) of the JAX
+  package's ``make_optimizer`` chain (zero the frozen grads, clip by global norm 5,
   + wd * p, momentum 0.9, -lr) against the port's ``StagedSGD``, with the
   clip triggered and not, in float64: within 1e-12.
 """
@@ -143,7 +143,7 @@ def test_update_equals_optax_chain(stage, grad_scale):
             params = optax.apply_updates(params, updates)
         ref = flat(params)
 
-    opt = optim.make_optimizer(model, stage, lr)
+    opt = optim.StagedSGD(model, stage, lr)
     for g in grads:
         opt.zero_grad()
         for k, p in model.named_parameters():

@@ -46,7 +46,7 @@ from sln_amodal_tpu_torch.convert import params_from_jax
 from sln_amodal_tpu_torch.models.sln import SLNAmodal
 from sln_amodal_tpu_torch.profile_train import make_batch
 from sln_amodal_tpu_torch.train import checkpoint as ckpt
-from sln_amodal_tpu_torch.train.optim import make_optimizer
+from sln_amodal_tpu_torch.train.optim import StagedSGD
 from sln_amodal_tpu_torch.train.trainer import Trainer, to_device, train_step
 from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
 from torch_port_helpers import random_variables
@@ -125,7 +125,7 @@ def test_train_step_equals_jax(shared, jax_step, stage):
     ref_losses, updated, draws, ref_class_ids = jax_step
     model = SLNAmodal(Config(**CFG), device="cpu")
     model.load_state_dict(port_sd)
-    opt = make_optimizer(model, stage, LR)
+    opt = StagedSGD(model, stage, LR)
     out = {}
     original = model.train_step_outputs
 
