@@ -58,6 +58,24 @@ Phases (each prints one JSON line):
    2). ``evaluate`` then loads the saved checkpoint on 8 of the images and
    must detect.
 
+10. device_prep — the on-device training targets (``data/device_prep.py``) on
+    2 samples of the train phase's 1024² set with augment on and fixed
+    draws: the card's ``prepare_batch`` equals the CPU's on the same draws,
+    bit for bit on images, masks, class ids and RPN matches, boxes and RPN
+    deltas within 1e-6 (the measured maximum printed); the RLE and the
+    dense upload give equal batches, and so do three batches of a
+    ``DevicePrepLoader`` on the card and the CPU's prep of them. Host
+    ``encode_sample`` ms per sample, upload and prep ms per batch (CUDA
+    events), upload bytes per batch of each route and of the host loader's
+    batch, runs per sample and the RLE budget.
+11. train_device_prep — ``cli.train train --stage heads`` for 7 steps as
+    phase 9 runs it (same weights, data and timings), eight times in turns:
+    (host loader, ``--device_prep``, ``--device_prep``, host loader) twice.
+    Per run and per loader: step wall, device span, images/s, busy share, loader
+    wait, the loader threads' host ms, ``cudaMalloc`` calls and CUDA
+    runtime host ms per step, peak memory, positives and launches per step
+    (NMS 1, RoIAlign 2, backward 2).
+
 Then, on lines of their own: the kernels' JSON summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last. Any failure raises
 and the exit code is non-zero; so is it without a card.
@@ -794,11 +812,36 @@ def reference_train(dev, tmp):
           "param_max_abs_err": param_err, "param_err_of_update": param_err / update})
 
 
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's and ATen's deterministic algorithms, restored on exit. Ops
+    without one warn instead of raising."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+        if saved[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[4]
+
+
 def convergence(dev, tmp, steps=150):
     """The recipe of tests/test_convergence.py on the card: 64², ``steps``
     (150) steps of the ROI heads at batch 2 with the RPN biased and frozen; AP@.5 and
     AR@100 (both/all) of the 4 validation images must rise above their
-    before-training values."""
+    before-training values. One loader thread and deterministic algorithms
+    make the run repeatable: with four threads (their batches interleave as
+    they finish) and cuDNN's fastest algorithms each run took another path,
+    and on an H100 one run in seven fell below the before-training values."""
     from sln_amodal_tpu_torch.cli import train as cli
     from sln_amodal_tpu_torch.config import Config
     from sln_amodal_tpu_torch.convert import init_params
@@ -827,15 +870,16 @@ def convergence(dev, tmp, steps=150):
                                                  float(stats["both/all"][5]))
 
     sd = rpn_biased_variables(init_params(cfg, seed=0, device="cpu"))
-    before = headline(sd)
-    trainer = Trainer(cfg, sd, device=dev)
-    t = time.perf_counter()
-    losses = trainer.train_stage(
-        TrainLoader(cli.load_train_dataset(args, "train"), cfg, seed=0),
-        lambda name: name.startswith(("classifier.", "mask.")), cfg.learning_rate,
-        epochs=1, steps_per_epoch=steps)
-    train_s = time.perf_counter() - t
-    after = headline(trainer.model.state_dict())
+    with deterministic():
+        before = headline(sd)
+        trainer = Trainer(cfg, sd, device=dev)
+        t = time.perf_counter()
+        losses = trainer.train_stage(
+            TrainLoader(cli.load_train_dataset(args, "train"), cfg, seed=0, workers=1),
+            lambda name: name.startswith(("classifier.", "mask.")), cfg.learning_rate,
+            epochs=1, steps_per_epoch=steps)
+        train_s = time.perf_counter() - t
+        after = headline(trainer.model.state_dict())
     if not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"convergence losses {losses}")
     if not (after[0] > before[0] and after[1] > before[1]):
@@ -850,14 +894,20 @@ def convergence(dev, tmp, steps=150):
 def timed_train(trainer_mod, cli, kernels, profile_last):
     """Records, per train step of ``cli.train``'s loop: host wall ms (the
     step ends in a synchronize), the CUDA events' device span, the losses,
-    the positive ROIs, each kernel's launches, and the loader's wait; the
-    last ``profile_last`` steps of each stage run under ``torch.profiler``
-    (kernel time over step wall: the busy share) and are left out of the
-    timings."""
+    the positive ROIs, each kernel's launches, the caching allocator's
+    ``cudaMalloc`` calls, and the loader's wait; per sample, the host ms of
+    the loader's worker threads (``_make_one_sample``), and per batch of a
+    ``DevicePrepLoader``, the host ms of its prefetch thread (``_prepare``:
+    the pinned upload and the prep's launches). The last ``profile_last``
+    steps of each stage run under ``torch.profiler`` (kernel time over step
+    wall: the busy share; host ms in CUDA runtime calls) and are left out
+    of the timings."""
     from torch.profiler import ProfilerActivity, profile
 
-    rec = {"steps": [], "loader_wait_ms": [], "positives": [], "stages": []}
-    step_fn, losses_fn, loader_cls = trainer_mod.train_step, trainer_mod.batched_losses, cli.TrainLoader
+    rec = {"steps": [], "loader_wait_ms": [], "positives": [], "stages": [], "loaders": [],
+           "sample_ms": [], "prepare_ms": []}
+    step_fn, losses_fn = trainer_mod.train_step, trainer_mod.batched_losses
+    loader_classes = (cli.TrainLoader, cli.DevicePrepLoader)
     state = {"n": 0, "total": 0, "prof": None}
 
     def batched_losses(out, batch):
@@ -870,6 +920,7 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
             state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             state["prof"].start()
         before = [k.launches for k in kernels]
+        mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
         start.record()
@@ -878,6 +929,8 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
         rec["steps"].append(dict(wall_ms=wall, device_ms=start.elapsed_time(end),
+                                 device_mallocs=torch.cuda.memory_stats().get(
+                                     "num_device_alloc", 0) - mallocs,
                                  losses={k: float(v) for k, v in losses.items()},
                                  positives=int(rec["positives"][-1]),
                                  launches=[k.launches - b for k, b in zip(kernels, before)],
@@ -885,24 +938,40 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
         state["n"] += 1
         return losses
 
-    class TimedLoader(loader_cls):
-        def __iter__(self):
-            it = super().__iter__()
-            while True:
-                t = time.perf_counter()
-                batch = next(it)
-                rec["loader_wait_ms"].append((time.perf_counter() - t) * 1e3)
-                yield batch
+    def timed_method(obj, name, key):
+        fn = getattr(obj, name)
+
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            rec[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        setattr(obj, name, call)
+
+    def timed_loader(loader_cls):
+        class TimedLoader(loader_cls):
+            def __iter__(self):
+                rec["loaders"].append(self)
+                timed_method(self, "_make_one_sample", "sample_ms")
+                if hasattr(self, "_prepare"):
+                    timed_method(self, "_prepare", "prepare_ms")
+                it = super().__iter__()
+                while True:
+                    t = time.perf_counter()
+                    batch = next(it)
+                    rec["loader_wait_ms"].append((time.perf_counter() - t) * 1e3)
+                    yield batch
+        return TimedLoader
 
     def stage(total_steps):
         state.update(n=0, total=total_steps, prof=None)
 
     def stop_profile():
         """(device ms of the profiled steps' kernels, {kernel: ms} of the
-        port's three kernels among them)."""
+        port's three kernels among them, {CUDA runtime call: host ms})."""
         prof = state["prof"]
         if prof is None:
-            return 0.0, {}
+            return 0.0, {}, {}
         prof.stop()
         from torch.autograd import DeviceType
         spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
@@ -911,15 +980,20 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
         ours = {k: sum(ms for name, ms in spans if k in name)
                 for k in ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel",
                           "roi_align_backward_kernel")}
-        return sum(ms for _, ms in spans), ours
+        runtime = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA and e.name.startswith("cuda"):
+                runtime[e.name] = runtime.get(e.name, 0.0) + (e.time_range.end
+                                                              - e.time_range.start) / 1e3
+        return sum(ms for _, ms in spans), ours, runtime
 
-    trainer_mod.train_step, trainer_mod.batched_losses, cli.TrainLoader = (
-        train_step, batched_losses, TimedLoader)
+    trainer_mod.train_step, trainer_mod.batched_losses = train_step, batched_losses
+    cli.TrainLoader, cli.DevicePrepLoader = (timed_loader(c) for c in loader_classes)
     try:
         yield rec, stage, stop_profile
     finally:
-        trainer_mod.train_step, trainer_mod.batched_losses, cli.TrainLoader = (
-            step_fn, losses_fn, loader_cls)
+        trainer_mod.train_step, trainer_mod.batched_losses = step_fn, losses_fn
+        cli.TrainLoader, cli.DevicePrepLoader = loader_classes
 
 
 def train_start_weights(cfg, dev) -> dict:
@@ -964,52 +1038,43 @@ def train_start_weights(cfg, dev) -> dict:
     return sd
 
 
-def train_path(dev, tmp):
-    """``cli.train train`` at full width (ResNet-101-FPN, DeepLabV2-MSC at
-    513², 1024², float32, TF32 off, batch 2) on 16 synthetic images whose
-    ground truth sits on the biased RPN's first proposals, from the weights
-    of :func:`train_start_weights`: ``--stage heads`` for 7 steps, then
-    ``--stage all`` for 7 (the backward through all of ResNet-101); then ``evaluate``
-    loads the saved checkpoint on 8 of the images and must detect. In each
-    stage the first step is warm-up, steps 2-4 are timed and steps 5-7 run
-    under one ``torch.profiler`` window for the busy share."""
-    from sln_amodal_tpu_torch.cli import train as cli
+KERNEL_NAMES = ("nms", "roi_align", "roi_align_backward")
+
+
+def train_kernels():
     from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
     from sln_amodal_tpu_torch.ops.roi_align_cuda import (ROI_ALIGN_BACKWARD_KERNEL,
                                                          ROI_ALIGN_KERNEL)
-    from sln_amodal_tpu_torch.train import checkpoint as ckpt
+
+    return NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL
+
+
+def run_train_stages(dev, runs, common):
+    """``cli.train train`` once per (label, stage, steps, extra arguments)
+    of ``runs``, under :func:`timed_train` with the kernels' counts set to
+    0 first. Checks each run (finite losses, positive ROIs and launches NMS
+    1, RoIAlign 2, backward 2 every step) and returns ({label: its
+    numbers}, {kernel: launches over the runs}, the loaders the runs
+    iterated)."""
+    from sln_amodal_tpu_torch.cli import train as cli
     from sln_amodal_tpu_torch.train import trainer as trainer_mod
 
-    kernels = (NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL)
-    names = ("nms", "roi_align", "roi_align_backward")
-    root, logs = os.path.join(tmp, "train"), os.path.join(tmp, "train_logs")
-    t0 = time.perf_counter()
-    cfg = cli.train_config(cli.build_parser().parse_args(
-        ["train", "--dataset", root, "--batch_size", "2"]))
-    pair = biased_pair(cfg)
-    write_dataset(root, cfg.image_size, 16, seed=4, pair=pair, subset="train", layers=True)
-    write_dataset(root, cfg.image_size, 8, seed=4, pair=pair)      # the first 8 images
-    model = ckpt.save(train_start_weights(cfg, dev), os.path.join(tmp, "rpn_biased"),
-                      "rpn_biased", 1)
-    setup_s = time.perf_counter() - t0
-
-    common = ["--dataset", root, "--batch_size", "2", "--logs", logs, "--seed", "0",
-              "--device", str(dev)]
+    kernels = train_kernels()
     stages = {}
     for k in kernels:
         k.launches = 0
     with timed_train(trainer_mod, cli, kernels, profile_last=3) as (rec, stage, stop_profile):
-        for name, steps, extra in (("heads", 7, ["--model", model]),
-                                   ("all", 7, ["--model", "last"])):
+        for label, name, steps, extra in runs:
             stage(steps)
             first = len(rec["steps"])
-            waits = len(rec["loader_wait_ms"])
+            marks = {k: len(rec[k]) for k in ("loader_wait_ms", "sample_ms", "prepare_ms")}
             torch.cuda.reset_peak_memory_stats(dev)
             t = time.perf_counter()
             out = cli.main(["train", "--stage", name, "--epochs", "1", "--steps_per_epoch",
                             str(steps), *extra, *common])
             stage_s = time.perf_counter() - t
-            busy_ms, kernel_ms = stop_profile()
+            busy_ms, kernel_ms, runtime_ms = stop_profile()
+            new = {k: rec[k][n:] for k, n in marks.items()}
             steps_rec = rec["steps"][first:]
             timed = [s for s in steps_rec[1:] if not s["profiled"]]
             profiled = [s for s in steps_rec if s["profiled"]]
@@ -1024,37 +1089,209 @@ def train_path(dev, tmp):
                 raise AssertionError(f"stage {name}: launches per step "
                                      f"{[s['launches'] for s in steps_rec]}")
             wall = statistics.median(s["wall_ms"] for s in timed)
-            stages[name] = dict(
+            stages[label] = dict(
                 steps=steps, checkpoint=os.path.basename(out.checkpoints[-1]),
                 step_wall_ms_median=wall,
                 step_device_ms_median=statistics.median(s["device_ms"] for s in timed),
                 step_wall_ms=[s["wall_ms"] for s in steps_rec],
                 images_per_s=2 * 1e3 / wall, stage_wall_s=stage_s,
-                loader_wait_ms_per_step=statistics.mean(rec["loader_wait_ms"][waits:]),
+                loader_wait_ms_per_step=statistics.mean(new["loader_wait_ms"]),
+                loader_wait_ms=new["loader_wait_ms"],
+                worker_ms_per_sample=statistics.mean(new["sample_ms"]),
+                prefetch_ms_per_batch=(statistics.mean(new["prepare_ms"])
+                                       if new["prepare_ms"] else None),
+                device_mallocs_per_step=[s["device_mallocs"] for s in steps_rec],
                 timed_steps=len(timed), profiled_steps=len(profiled),
                 busy_share_profiled_steps=busy_ms / sum(s["wall_ms"] for s in profiled),
                 kernel_device_ms_per_profiled_step={k: v / len(profiled)
                                                     for k, v in kernel_ms.items()},
+                cuda_runtime_host_ms_per_profiled_step={
+                    k: v / len(profiled) for k, v in sorted(runtime_ms.items(),
+                                                            key=lambda kv: -kv[1])
+                    if v / len(profiled) >= 0.5},
                 peak_mem_bytes=int(torch.cuda.max_memory_allocated(dev)),
                 first_losses=steps_rec[0]["losses"], last_losses=steps_rec[-1]["losses"],
                 total_loss_by_step=losses,
                 positives_per_step=[s["positives"] for s in steps_rec],
-                launches_per_step=dict(zip(names, steps_rec[-1]["launches"])))
-            emit({"phase": "train", "stage": name, **stages[name]})
-    launches = {n: k.launches for n, k in zip(names, kernels)}
+                launches_per_step=dict(zip(KERNEL_NAMES, steps_rec[-1]["launches"])),
+                launches=dict(zip(KERNEL_NAMES, np.sum([s["launches"] for s in steps_rec],
+                                                       0).tolist())))
+    launches = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the train path never launched: {launches}")
+    return stages, launches, rec["loaders"]
+
+
+def train_path(dev, tmp):
+    """``cli.train train`` at full width (ResNet-101-FPN, DeepLabV2-MSC at
+    513², 1024², float32, TF32 off, batch 2) on 16 synthetic images whose
+    ground truth sits on the biased RPN's first proposals, from the weights
+    of :func:`train_start_weights`: ``--stage heads`` for 7 steps, then
+    ``--stage all`` for 7 (the backward through all of ResNet-101); then ``evaluate``
+    loads the saved checkpoint on 8 of the images and must detect. In each
+    stage the first step is warm-up, steps 2-4 are timed and steps 5-7 run
+    under one ``torch.profiler`` window for the busy share."""
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.train import checkpoint as ckpt
+
+    root, logs = os.path.join(tmp, "train"), os.path.join(tmp, "train_logs")
+    t0 = time.perf_counter()
+    cfg = cli.train_config(cli.build_parser().parse_args(
+        ["train", "--dataset", root, "--batch_size", "2"]))
+    pair = biased_pair(cfg)
+    write_dataset(root, cfg.image_size, 16, seed=4, pair=pair, subset="train", layers=True)
+    write_dataset(root, cfg.image_size, 8, seed=4, pair=pair)      # the first 8 images
+    model = ckpt.save(train_start_weights(cfg, dev), os.path.join(tmp, "rpn_biased"),
+                      "rpn_biased", 1)
+    setup_s = time.perf_counter() - t0
+
+    common = ["--dataset", root, "--batch_size", "2", "--logs", logs, "--seed", "0",
+              "--device", str(dev)]
+    stages, launches, _ = run_train_stages(
+        dev, (("heads", "heads", 7, ["--model", model]), ("all", "all", 7, ["--model", "last"])),
+        common)
+    for name, stats in stages.items():
+        emit({"phase": "train", "stage": name, **stats})
 
     # evaluate loads the last checkpoint on 8 of the training images
     ev = cli.main(["evaluate", "--dataset", root, "--model", "last", "--logs", logs,
                    "--eval_batch", "8", "--device", str(dev), "--data_type", "COCOA"])
     if not ev.results:
         raise AssertionError("evaluate of the trained checkpoint gave no detection")
-    out = dict(setup_s=setup_s, stages=stages, launches=launches,
-               evaluate_detections=len(ev.results),
+    out = dict(setup_s=setup_s, stages=stages, launches=launches, root=root, model=model,
+               config=cfg, evaluate_detections=len(ev.results),
                evaluate_both_all_ap=None if ev.stats is None else float(ev.stats["both/all"][0]))
     emit({"phase": "train_evaluate", "detections": len(ev.results),
           "both_all_ap": out["evaluate_both_all_ap"]})
+    return out
+
+
+def device_prep_check(dev, tr):
+    """Phase 10: ``prepare_batch`` on 2 samples of the train phase's set,
+    augment on, fixed draws: the card against the CPU (bit for bit but
+    boxes and deltas, within 1e-6), the RLE upload against the dense one
+    on the card (equal), and three batches of a ``DevicePrepLoader`` on the
+    card against the CPU's prep of the same encoded batches and draws.
+    Launches none of the three kernels."""
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.data import device_prep as dp
+    from sln_amodal_tpu_torch.data.pipeline import make_training_sample
+    from sln_amodal_tpu_torch.ops.anchors import config_anchors
+
+    cfg = tr["config"]
+    dataset = cli.load_train_dataset(cli.build_parser().parse_args(
+        ["train", "--dataset", tr["root"]]), "train")
+    t = time.perf_counter()
+    for i in (0, 1):
+        dp.encode_sample(dataset, cfg, i, dense_planes=False)      # the loader's setting
+    encode_ms = (time.perf_counter() - t) * 1e3 / 2
+    samples = [dp.encode_sample(dataset, cfg, i) for i in (0, 1)]
+    encoded = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    anchors = torch.from_numpy(config_anchors(cfg)).float()
+    draws = dp.draw(torch.Generator().manual_seed(0), 2, anchors.shape[0])
+
+    kernels = train_kernels()
+    before = [k.launches for k in kernels]
+
+    def prep(device, rle):
+        batch = dp.upload(encoded, rle, device)
+        return dp.prepare_batch(batch, anchors.to(device), draws.to(device), config=cfg,
+                                augment=True)
+
+    card = {rle: {k: v.cpu() for k, v in prep(dev, rle).items()} for rle in (True, False)}
+    cpu = prep("cpu", True)
+    if [k.launches for k in kernels] != before:
+        raise AssertionError("the prep launched a kernel of the train step")
+    if not all(torch.equal(card[True][k], card[False][k]) for k in cpu):
+        raise AssertionError("the RLE and the dense upload gave other batches")
+    for k in ("images", "gt_masks", "gt_class_ids", "rpn_match"):
+        if not torch.equal(card[True][k], cpu[k]):
+            raise AssertionError(f"device_prep {k}: the card differs from the CPU")
+    err = {k: float((card[True][k] - cpu[k]).abs().max()) for k in ("gt_boxes", "rpn_deltas")}
+    if not ((cpu["rpn_match"] == 1).any(1).all() and cpu["gt_masks"].flatten(1).any(1).all()):
+        raise AssertionError("device_prep: a sample has no positive anchor or no mask")
+
+    # the loader on the card (pinned upload, side stream, the consumer's
+    # wait): each batch equals the CPU's prep of its encoded batch and draws
+    loader = dp.DevicePrepLoader(dataset, cfg, seed=0, workers=1, device=dev)
+    seen, drawn = [], []
+    prepare, draw_batch = loader._prepare, loader._draws
+    loader._prepare = lambda enc: seen.append(enc) or prepare(enc)
+    loader._draws = lambda b: drawn.append(draw_batch(b)) or drawn[-1]
+    it = iter(loader)
+    for i in range(3):
+        got = next(it)
+        ref = dp.prepare_batch(dp.upload(seen[i], True, "cpu"), anchors, drawn[i].to("cpu"),
+                               config=cfg, augment=True)
+        if not all(torch.equal(got[k].cpu(), ref[k]) for k in
+                   ("images", "gt_masks", "gt_class_ids", "rpn_match")):
+            raise AssertionError(f"DevicePrepLoader batch {i} differs from the CPU's prep")
+        err = {k: max(err[k], float((got[k].cpu() - ref[k]).abs().max())) for k in err}
+    it.close()
+    if max(err.values()) > 1e-6:
+        raise AssertionError(f"device_prep boxes / deltas beyond 1e-6 of the CPU's: {err}")
+
+    uploaded = {rle: dp.upload(encoded, rle, dev) for rle in (True, False)}
+    anchors_dev, draws_dev = anchors.to(dev), draws.to(dev)
+    out = dict(
+        batch=2, image=cfg.image_size, augment=True, max_abs_err=err,
+        bit_equal=["images", "gt_masks", "gt_class_ids", "rpn_match"],
+        rle_equals_dense=True, loader_batches_equal_cpu=3, encode_ms_per_sample=encode_ms,
+        upload_bytes_per_batch=dict(
+            {route: sum(a.nbytes for a in dp.upload_arrays(encoded, rle).values())
+             for route, rle in (("rle", True), ("dense", False))},
+            host_loader=sum(v.nbytes for i in (0, 1) for v in make_training_sample(
+                dataset, cfg, i, config_anchors(cfg), rng=np.random.default_rng(i)).values())),
+        upload_ms_per_batch={route: cuda_ms(lambda: dp.upload(encoded, rle, dev), 10)
+                             for route, rle in (("rle", True), ("dense", False))},
+        prep_ms_per_batch={route: cuda_ms(lambda: dp.prepare_batch(
+            uploaded[rle], anchors_dev, draws_dev, config=cfg, augment=True), 10)
+            for route, rle in (("rle", True), ("dense", False))},
+        n_runs_per_sample=[int(n) for n in encoded["n_runs"]],
+        rle_budget=dp.rle_budget_for(cfg.image_size),
+        positives_per_sample=[int(n) for n in (cpu["rpn_match"] == 1).sum(1)])
+    emit({"phase": "device_prep", **out})
+    return out
+
+
+def train_device_prep(dev, tmp, tr, prep):
+    """Phase 11: phase 9's heads stage with ``--device_prep`` (the same
+    weights, data, steps and timings, the targets built on the card), in
+    turns with the host loader: host, device prep, device prep, host, twice.
+    Emits each run and both loaders' numbers over their four runs (step
+    medians over the timed steps, means of the rest)."""
+    common = ["--dataset", tr["root"], "--batch_size", "2", "--seed", "0", "--device", str(dev),
+              "--logs", os.path.join(tmp, "train_device_prep_logs"), "--model", tr["model"]]
+    order = ("host", "device_prep", "device_prep", "host") * 2
+    runs = [(f"{kind}_{i}", "heads", 7, ["--device_prep"] if kind == "device_prep" else [])
+            for i, kind in enumerate(order)]
+    stages, _, loaders = run_train_stages(dev, runs, common)
+    for (label, *_), loader in zip(runs, loaders):
+        emit({"phase": "train_device_prep", "run": label, "stage": "heads",
+              "route_counts": getattr(loader, "route_counts", None), **stages[label]})
+
+    def summary(kind):
+        runs_of = [v for k, v in stages.items() if k.startswith(kind)]
+        walls = [w for r in runs_of for w in r["step_wall_ms"][1:4]]
+        prefetch = [r["prefetch_ms_per_batch"] for r in runs_of
+                    if r["prefetch_ms_per_batch"] is not None]
+        return dict(
+            runs=len(runs_of), step_wall_ms_median=statistics.median(walls),
+            images_per_s=2 * 1e3 / statistics.median(walls),
+            loader_wait_ms_per_step=statistics.mean(r["loader_wait_ms_per_step"]
+                                                    for r in runs_of),
+            loader_wait_ms_after_first_step=statistics.mean(
+                w for r in runs_of for w in r["loader_wait_ms"][1:]),
+            busy_share_profiled_steps=statistics.mean(r["busy_share_profiled_steps"]
+                                                      for r in runs_of),
+            worker_ms_per_sample=statistics.mean(r["worker_ms_per_sample"] for r in runs_of),
+            prefetch_ms_per_batch=statistics.mean(prefetch) if prefetch else None,
+            peak_mem_bytes=max(r["peak_mem_bytes"] for r in runs_of),
+            launches={k: sum(r["launches"][k] for r in runs_of) for k in KERNEL_NAMES})
+    out = dict(order=list(order), device_prep=summary("device_prep"),
+               host_loader=summary("host"), upload_bytes_per_batch=prep["upload_bytes_per_batch"])
+    out["launches"] = out["device_prep"]["launches"]
+    emit({"phase": "train_device_prep_summary", **out})
     return out
 
 
@@ -1096,6 +1333,8 @@ def main() -> int:
         reference_train(dev, tmp)
         convergence(dev, tmp)
         tr = train_path(dev, tmp)
+        prep = device_prep_check(dev, tr)
+        trp = train_device_prep(dev, tmp, tr, prep)
 
     # forward kernels: times at the evaluate path's shapes (batch 8),
     # launches of the evaluate run; the backward: times at the train step's
@@ -1113,7 +1352,8 @@ def main() -> int:
             "replaces": f"sln_amodal_tpu/ops/{replaces}", "launches": main_run["launches"][key],
             "launches_by_path": {"detect": path["launches"][key],
                                  "evaluate": ev["launches"][key],
-                                 "train": tr["launches"][key]},
+                                 "train": tr["launches"][key],
+                                 "train_device_prep": trp["launches"][key]},
             "batch": batch, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "device_ms": k["device_ms"]})

@@ -12,9 +12,12 @@ has no bfloat16 compute yet, so they do not follow the ``Config`` default
 ``compute_dtype="bfloat16"`` of the JAX package's CLI. ``train`` runs the
 reference's three-stage schedule, or one ``--stage`` for ``--epochs``, and
 saves a reference-layout ``.pth`` (which ``evaluate`` loads) and a
-``.pth.state`` resume file after every epoch. The flags of later slices
-(``--data_parallel``, ``--device_prep``, ``--coordinator``, ``--trace_dir``)
-exit with an error naming the ROADMAP item that ports them.
+``.pth.state`` resume file after every epoch; with ``--device_prep`` its
+training and validation targets are built on ``--device``
+(:class:`DevicePrepLoader`), as in the JAX package's CLI, which reads the
+flag only in ``train``. The flags of later slices (``--data_parallel``,
+``--coordinator``, ``--trace_dir``) exit with an error naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 from ..config import Config, inference_config, training_config
 from ..convert import init_params
 from ..data.dataset import AmodalCoco, AmodalDataset, DetectionResults
+from ..data.device_prep import DevicePrepLoader
 from ..data.pipeline import TrainLoader
 from ..eval_amodal.amodal_eval import AmodalEval, evaluate_sweep
 from ..eval_amodal.coco_results import build_coco_results_crops
@@ -44,7 +48,6 @@ DEFAULT_GLM_WEIGHTS = "./checkpoints/deeplabv2.pth"
 
 # what later slices of the port bring, by ROADMAP item
 NOT_PORTED = {
-    "device_prep": "--device_prep is ROADMAP item 12 (data path)",
     "data_parallel": "--data_parallel is ROADMAP item 13 (data parallelism)",
     "coordinator": "--coordinator is ROADMAP item 13 (data parallelism)",
     "trace_dir": "--trace_dir is ROADMAP item 14 (serving and tooling)",
@@ -87,7 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--data_parallel", action="store_true", help="not ported yet")
-    p.add_argument("--device_prep", action="store_true", help="not ported yet")
+    p.add_argument("--device_prep", action="store_true",
+                   help="build training targets (sem-dist decode, bboxes, RPN matching) "
+                        "on --device instead of in host numpy; equivalence pinned by "
+                        "tests/test_torch_device_prep.py")
     p.add_argument("--coordinator", default=None, help="not ported yet")
     p.add_argument("--trace_dir", default=None, help="not ported yet")
     return p
@@ -272,11 +278,14 @@ def run_train(args) -> Training:
     state_dict = resolve_weights(args, config, template)
     print_network(state_dict, "sln_amodal")
     trainer = Trainer(config, state_dict, device=args.device)
-    loader = TrainLoader(train_ds, config, seed=args.seed)
+    loader_cls, loader_kw = TrainLoader, {}
+    if args.device_prep:
+        loader_cls, loader_kw = DevicePrepLoader, {"device": args.device}
+    loader = loader_cls(train_ds, config, seed=args.seed, **loader_kw)
     val_loader = None
     if args.validate_steps > 0:
-        val_loader = TrainLoader(load_train_dataset(args, "val"), config,
-                                 seed=args.seed + 1, augment=False)
+        val_loader = loader_cls(load_train_dataset(args, "val"), config,
+                                seed=args.seed + 1, augment=False, **loader_kw)
 
     written: List[str] = []
 

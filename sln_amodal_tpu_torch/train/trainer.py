@@ -49,10 +49,13 @@ def batched_losses(out: TrainingOutputs, batch: Mapping[str, torch.Tensor]) -> D
 
 
 def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A loader's numpy batch on ``device`` (GT boxes as float32, as the
-    JAX package's step casts them)."""
-    out = {k: torch.as_tensor(np.asarray(batch[k])).to(device, non_blocking=True)
-           for k in BATCH_KEYS}
+    """A loader's batch on ``device``: numpy arrays are copied there,
+    tensors already there pass through (GT boxes as float32, as the JAX
+    package's step casts them)."""
+    def tensor(v):
+        return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+    out = {k: tensor(batch[k]).to(device, non_blocking=True) for k in BATCH_KEYS}
     out["gt_boxes"] = out["gt_boxes"].to(torch.float32)
     return out
 

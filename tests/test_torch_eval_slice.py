@@ -211,7 +211,6 @@ def test_test_images_cli_writes_pickled_results(weights, reduced_cli, tmp_path, 
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--device_prep"], "item 12"), (["evaluate", "--device_prep"], "item 12"),
     (["evaluate", "--data_parallel"], "item 13"),
     (["evaluate", "--coordinator", "host:1234"], "item 13"),
     (["evaluate", "--trace_dir", "/tmp/tb"], "item 14"),
@@ -220,6 +219,52 @@ def test_later_slices_exit_with_their_roadmap_item(argv, item, tmp_path):
     with pytest.raises(SystemExit) as exc:
         port_train.main([argv[0], "--dataset", str(tmp_path), *argv[1:]])
     assert item in str(exc.value.code) and "not ported yet" in str(exc.value.code)
+
+
+def test_train_device_prep_builds_device_prep_loaders(tmp_path, monkeypatch):
+    """``train --device_prep`` hands the trainer a ``DevicePrepLoader`` on
+    ``--device``, and builds one for validation (augment off)."""
+    root = make_synthetic_dataset(str(tmp_path / "data"), n_images=2, size=64, subset="train")
+    make_synthetic_dataset(root, n_images=2, size=64, subset="val")
+    seen = []
+
+    class StubTrainer:
+        def __init__(self, config, state_dict, device):
+            self.step = 0
+
+        def train_stage(self, loader, *args, **kwargs):
+            seen.append(loader)
+
+    monkeypatch.setattr(port_train, "Trainer", StubTrainer)
+    monkeypatch.setattr(port_train, "init_params",
+                        lambda config, seed=0, device="cuda": {"w": torch.zeros(1)})
+    built = []
+
+    class Recording(port_train.DevicePrepLoader):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    monkeypatch.setattr(port_train, "DevicePrepLoader", Recording)
+    port_train.main(["train", "--dataset", root, "--device_prep", "--device", "cpu",
+                     "--stage", "heads", "--model", "random", "--validate_steps", "1",
+                     "--logs", str(tmp_path / "logs")])
+    assert seen == built[:1]
+    assert [(b.augment, b.device.type) for b in built] == [(True, "cpu"), (False, "cpu")]
+
+
+def test_evaluate_device_prep_runs_as_plain_evaluate(weights, reduced_cli, tmp_path,
+                                                     monkeypatch):
+    """``evaluate`` does not read ``--device_prep`` (the JAX package's CLI
+    reads it only in ``train``): the same results as without it."""
+    root = make_synthetic_dataset(str(tmp_path / "data"), n_images=3, size=64, subset="val")
+    reduced_cli(monkeypatch)
+    argv = ["evaluate", "--dataset", root, "--model", weights[2], "--limit", "1",
+            "--device", "cpu"]
+    plain = port_train.main(argv)
+    with_flag = port_train.main(argv + ["--device_prep"])
+    assert with_flag.results == plain.results and len(plain.results) > 0
+    assert all(np.array_equal(with_flag.stats[k], plain.stats[k]) for k in plain.stats)
 
 
 def test_cli_defaults_float32_on_the_card():
@@ -248,9 +293,11 @@ leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "jaxlib", "flax", "sln_amodal_tpu")
                 and sys.modules[n] is not None)
 assert not leaked, leaked
+for name in ("data.device_prep", "cli.convert_dataset"):
+    assert "sln_amodal_tpu_torch." + name in names, name
 print(len(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 32
+    assert int(proc.stdout.split()[-1]) >= 34

@@ -59,9 +59,9 @@ CFG = dict(image_size=64, backbone="resnet50", glm_input_size=17, pre_nms_limit=
 LR = 1e-3
 
 
-@pytest.fixture(scope="module")
-def shared():
-    """(JAX variables, the port's state_dict of the same weights, batch)."""
+def shared_weights():
+    """(JAX variables, the port's state_dict of the same weights): seeded
+    numpy variables under the RPN-biased recipe of each package."""
     with jax.enable_x64(True):
         cfg = JaxConfig(**CFG)
         shapes = jax.eval_shape(lambda k: jax_init(cfg, k), jax.random.PRNGKey(0))
@@ -69,15 +69,19 @@ def shared():
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jax_synthetic, "init_params", lambda c, r: copy.deepcopy(variables))
             biased = jax_synthetic.rpn_biased_variables(cfg)
-    port_sd = rpn_biased_variables(params_from_jax(variables))
-    return biased, port_sd, make_batch(Config(**CFG), 2, 0)
+    return biased, rpn_biased_variables(params_from_jax(variables))
 
 
 @pytest.fixture(scope="module")
-def jax_step(shared):
-    """The JAX step's losses, its updated parameters for the heads and the
-    all stage, and its target-layer draws."""
-    variables, _, batch = shared
+def shared():
+    """(JAX variables, the port's state_dict of the same weights, batch)."""
+    return (*shared_weights(), make_batch(Config(**CFG), 2, 0))
+
+
+def jax_reference_step(variables, batch, stages=("heads", "all")):
+    """The JAX step on ``batch`` (numpy): its losses, its updated parameters
+    for each of ``stages`` (as reference state_dicts), its target-layer
+    draws and its sampled class ids."""
     rng = jax.random.PRNGKey(7)
     with jax.enable_x64(True):
         cfg = JaxConfig(**CFG)
@@ -94,7 +98,7 @@ def jax_step(shared):
         (_, (losses, class_ids)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
             variables, rng, {k: jnp.asarray(v) for k, v in batch.items()})
         updated = {}
-        for stage in ("heads", "all"):
+        for stage in stages:
             tx = jax_optim.make_optimizer(variables, stage, LR)
 
             @jax.jit
@@ -109,6 +113,26 @@ def jax_step(shared):
                                                  for k in pairs])) for j in (0, 1))
     return ({k: float(v) for k, v in losses.items()}, updated, draws,
             np.asarray(class_ids))
+
+
+@pytest.fixture(scope="module")
+def jax_step(shared):
+    return jax_reference_step(shared[0], shared[2])
+
+
+def assert_step_equals_jax(model, start, losses, ref_losses, updated):
+    """Losses within 1e-6 relative of the JAX step's, and every parameter
+    within 1e-6 of the update's size of the JAX step's update from
+    ``start``."""
+    assert set(losses) == set(ref_losses)
+    for k, v in losses.items():
+        assert abs(float(v) - ref_losses[k]) <= 1e-6 * abs(ref_losses[k]), (k, float(v), ref_losses[k])
+    got = dict(model.named_parameters())
+    update = max(float((updated[k] - start[k]).abs().max()) for k in got)
+    assert update > 0
+    for k, v in got.items():
+        err = float((v.detach() - updated[k]).abs().max())
+        assert err <= 1e-6 * update, (k, err, update)
 
 
 def test_rpn_biased_recipe_equals_jax(shared):
@@ -138,17 +162,9 @@ def test_train_step_equals_jax(shared, jax_step, stage):
     losses = train_step(model, opt, to_device(batch, "cpu"), uniforms=draws)
     np.testing.assert_array_equal(out["targets"].class_ids.numpy(), ref_class_ids)
     assert int(out["targets"].positive.sum()) > 0
-    assert set(losses) == set(ref_losses)
-    for k, v in losses.items():
-        assert abs(float(v) - ref_losses[k]) <= 1e-6 * abs(ref_losses[k]), (k, float(v), ref_losses[k])
     assert ref_losses["mrcnn_class"] > 0 and ref_losses["layer"] > 0
-    ref = updated[stage]
+    assert_step_equals_jax(model, port_sd, losses, ref_losses, updated[stage])
     got = dict(model.named_parameters())
-    update = max(float((ref[k] - port_sd[k]).abs().max()) for k in got)
-    assert update > 0
-    for k, v in got.items():
-        err = float((v.detach() - ref[k]).abs().max())
-        assert err <= 1e-6 * update, (k, err, update)
     moved = {k for k in got if not torch.equal(got[k].detach(), port_sd[k])}
     assert ("fpn.C4.0.conv1.weight" in moved) == (stage == "all")
     assert "fpn.P2_conv2.1.weight" in moved and "GLM_modual.base.aspp.c0.weight" not in moved
