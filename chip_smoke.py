@@ -76,6 +76,30 @@ Phases (each prints one JSON line):
     runtime host ms per step, peak memory, positives and launches per step
     (NMS 1, RoIAlign 2, backward 2).
 
+12. data_parallel — data parallelism and gradient accumulation at phase
+    9's full width, from a batch of 2 of its data whose rows both sample
+    ROIs and ``train_start_weights(rpn_gradient=True)`` (so the RPN's
+    gradient reaches ResNet-101 and the FPN: its norm on ``fpn.`` is
+    printed, beside the norms under phase 9's weights and with the shared
+    conv alone kept), deterministic algorithms, the global norm each step
+    clips printed and, in (b) and (c), held within 1e-4 relative of (a)'s: (a)
+    ``Trainer`` in a one-process NCCL group equals the plain ``train_step``
+    bit for bit, with the gradient all-reduce's bytes and ms for heads and
+    all; (b) two processes on the one card over gloo (``python3
+    chip_smoke.py data_parallel_worker RANK PORT DIR``), one row each with
+    the global draws, equal to each other bit for bit and within 1e-4 of
+    the update's largest element of (a), plus one float32 ulp of each
+    parameter (losses 1e-5 relative); (c)
+    ``accumulate_steps=2`` over the two rows, unchanged after micro-step 1
+    and within (b)'s tolerance of (a) after micro-step 2; (d)
+    ``Detector(mesh=(cuda:0, cuda:0))`` on 3 of phase 6's images equals
+    ``Detector`` without a mesh, and ``evaluate --data_parallel`` on 8
+    equals the run without it; (e) in (b)'s processes, ``cli.train train
+    --num_processes 2 --device_prep`` with the backend forced to gloo:
+    process 0 alone writes the checkpoint, the parameters end equal, each
+    loader streams its half. Launches counted over (a) and (c)
+    (``data_parallel``) and over (d)'s mesh runs (``data_parallel_serving``).
+
 Then, on lines of their own: the kernels' JSON summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last. Any failure raises
 and the exit code is non-zero; so is it without a card.
@@ -744,7 +768,7 @@ def eval_path(dev, tmp):
                both_all_ar100=float(stats["both/all"][5]),
                peak_mem_bytes=int(peak), batches=batches, launches=launches)
     emit({"phase": "eval", **out})
-    return out
+    return dict(out, root=root, model=args.model)
 
 
 def one_step(model, batch, stage, lr, seed):
@@ -996,10 +1020,14 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
         cli.TrainLoader, cli.DevicePrepLoader = loader_classes
 
 
-def train_start_weights(cfg, dev) -> dict:
+def train_start_weights(cfg, dev, rpn_gradient: bool = False) -> dict:
     """The train phase's starting state_dict: the seeded init under the
     RPN-biased recipe, and three changes that make its checks hold on
-    noise images and a random trunk:
+    noise images and a random trunk (``rpn_gradient=True`` replaces the
+    first: the shared RPN conv keeps its seeded values and the box conv,
+    zero in the recipe, takes its seeded weights times 1e-3, so that the
+    RPN's box loss sends a gradient into the trunk while the proposals
+    stay the anchors in order, all scores equal):
 
     - the shared RPN conv zero: its features are 0 (and its ReLU passes no
       gradient), so training moves only the RPN's per-anchor-shape biases
@@ -1021,9 +1049,13 @@ def train_start_weights(cfg, dev) -> dict:
     from sln_amodal_tpu_torch.models.sln import SLNAmodal
     from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
 
-    sd = rpn_biased_variables(init_params(cfg, seed=0, device="cpu"))
-    sd["rpn.conv_shared.weight"].zero_()
-    sd["rpn.conv_shared.bias"].zero_()
+    seeded = init_params(cfg, seed=0, device="cpu")
+    sd = rpn_biased_variables(seeded)
+    if rpn_gradient:
+        sd["rpn.conv_bbox.weight"] = seeded["rpn.conv_bbox.weight"] * 1e-3
+    else:
+        sd["rpn.conv_shared.weight"].zero_()
+        sd["rpn.conv_shared.bias"].zero_()
     sd["classifier.linear_class.weight"].zero_()
     sd["classifier.linear_class.bias"].copy_(torch.tensor([0.0, 8.0]))
     model = SLNAmodal(cfg, device=dev)
@@ -1295,6 +1327,518 @@ def train_device_prep(dev, tmp, tr, prep):
     return out
 
 
+class OneBatch:
+    """A loader that yields ``batches`` in turn, forever."""
+
+    def __init__(self, *batches):
+        self.batches = batches
+
+    def __iter__(self):
+        while True:
+            yield from self.batches
+
+
+@contextlib.contextmanager
+def timed_all_reduce():
+    """Records the bytes and the CUDA-event device ms of every
+    ``multihost.all_reduce_mean_`` call (the gradients' bucket, the logged
+    losses)."""
+    from sln_amodal_tpu_torch.parallel import multihost
+
+    calls = []
+    reduce = multihost.all_reduce_mean_
+
+    def timed(tensors):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        nbytes = reduce(tensors)
+        end.record()
+        end.synchronize()
+        calls.append((nbytes, start.elapsed_time(end)))
+        return nbytes
+
+    multihost.all_reduce_mean_ = timed
+    try:
+        yield calls
+    finally:
+        multihost.all_reduce_mean_ = reduce
+
+
+@contextlib.contextmanager
+def clipped_norms():
+    """Records the global norm that every ``StagedSGD.step`` clips (None for
+    a micro-step that does not update)."""
+    from sln_amodal_tpu_torch.train.optim import StagedSGD
+
+    norms, step = [], StagedSGD.step
+
+    def recorded(self):
+        norm = step(self)
+        norms.append(norm)
+        return norm
+
+    StagedSGD.step = recorded
+    try:
+        yield norms
+    finally:
+        StagedSGD.step = step
+
+
+def gradient_bucket(calls) -> dict:
+    """The gradients' all-reduce among ``calls`` (the largest bucket)."""
+    nbytes, ms = max(calls)
+    return {"bytes": nbytes, "ms": ms}
+
+
+def trainable(model) -> dict:
+    """A host copy of ``model``'s trained parameters."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in model.named_parameters()
+            if v.requires_grad}
+
+
+def rpn_grad_to_fpn(cfg, sd, batch, uniforms, dev) -> float:
+    """The global norm of the RPN losses' gradient on the ``fpn.``
+    parameters (ResNet-101 and the FPN), one forward from ``sd``."""
+    from sln_amodal_tpu_torch.models.sln import SLNAmodal
+    from sln_amodal_tpu_torch.train.trainer import loss_on
+
+    model = SLNAmodal(cfg, device=dev)
+    model.load_state_dict(sd)
+    params = [p for n, p in model.named_parameters() if n.startswith("fpn.")]
+    for p in params:
+        p.requires_grad_(True)
+    losses = loss_on(model, batch, uniforms=uniforms)
+    grads = torch.autograd.grad(losses["rpn_class"] + losses["rpn_bbox"], params,
+                                allow_unused=True)
+    return float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads if g is not None])))
+
+
+def dp_trainer_step(cfg, sd, dev, stage, loader, seed, steps=1, accumulate_steps=1,
+                    on_epoch_end=None):
+    """``Trainer.train_stage`` from ``sd``: ``steps`` epochs of one step on
+    ``loader``; returns (trainer, last losses, the kernels' launches per
+    step, wall ms per step ending in a synchronize)."""
+    from sln_amodal_tpu_torch.train.trainer import Trainer
+
+    kernels = train_kernels()
+    trainer = Trainer(cfg, sd, device=dev)
+    launches, walls = [], []
+    before = [[k.launches for k in kernels]]
+    t = [time.perf_counter()]
+
+    def end(epoch):
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t[0]) * 1e3)
+        launches.append([k.launches - b for k, b in zip(kernels, before[0])])
+        if on_epoch_end is not None:
+            on_epoch_end(epoch, trainer)
+        before[0] = [k.launches for k in kernels]
+        t[0] = time.perf_counter()
+
+    losses = trainer.train_stage(loader, stage, cfg.learning_rate, epochs=steps,
+                                 steps_per_epoch=1, seed=seed, on_epoch_end=end,
+                                 accumulate_steps=accumulate_steps)
+    if any(n != [1, 2, 2] for n in launches):
+        raise AssertionError(f"data_parallel {stage}: launches per step {launches}")
+    return trainer, losses, launches, walls
+
+
+def data_parallel_worker(rank: int, port: str, path: str) -> int:
+    """Phase 12 (b) and (e), one of two processes on the one card. (b): a
+    gloo group of 2, one ``all`` step on row ``rank`` of the saved batch
+    with the global draws; writes its losses and trained parameters. (e):
+    ``cli.train train --coordinator --num_processes 2 --process_id rank
+    --device_prep``, two heads steps of one image, with the backend the CLI
+    picks for a card (NCCL) forced to gloo, as NCCL refuses two processes
+    on one card; writes its checkpoints, step, trained parameters and its
+    loader's slice of the dataset."""
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.parallel import multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = torch.load(os.path.join(path, "in.pt"), weights_only=False)
+    dev = torch.device(data["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    multihost.init_group(f"localhost:{port}", 2, rank, "gloo")
+    try:
+        row = {k: v[rank:rank + 1] for k, v in data["batch"].items()}
+        with deterministic(), timed_all_reduce() as calls, clipped_norms() as norms:
+            trainer, losses, launches, walls = dp_trainer_step(
+                data["config"], data["state_dict"], dev, "all", OneBatch(row), data["seed"])
+        torch.save({"losses": losses, "params": trainable(trainer.model),
+                    "norm": float(norms[0])}, os.path.join(path, f"out{rank}.pt"))
+        emit({"phase": "data_parallel_rank", "part": "b", "rank": rank, "world": 2,
+              "backend": "gloo", "launches_per_step": dict(zip(KERNEL_NAMES, launches[0])),
+              "step_wall_ms": walls[0], "all_reduce": gradient_bucket(calls),
+              "all_reduce_calls": len(calls), "clipped_norm": float(norms[0])})
+    finally:
+        multihost.shutdown()
+    del trainer
+    torch.cuda.empty_cache()
+
+    kernels, loaders = train_kernels(), []
+    loader_cls, backend = cli.DevicePrepLoader, multihost.default_backend
+
+    class Recorded(loader_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            loaders.append(self)
+
+    cli.DevicePrepLoader, multihost.default_backend = Recorded, lambda device: "gloo"
+    before = [k.launches for k in kernels]
+    t = time.perf_counter()
+    try:
+        out = cli.main(["train", "--dataset", data["root"], "--model", data["model"],
+                        "--logs", os.path.join(path, "logs"), "--stage", "heads", "--epochs",
+                        "1", "--steps_per_epoch", "2", "--batch_size", "1", "--device_prep",
+                        "--seed", "0", "--device", str(dev), "--coordinator",
+                        f"localhost:{data['cli_port']}", "--num_processes", "2",
+                        "--process_id", str(rank)])
+    finally:
+        cli.DevicePrepLoader, multihost.default_backend = loader_cls, backend
+    seconds = time.perf_counter() - t
+    launches = [k.launches - b for k, b in zip(kernels, before)]
+    if multihost.is_distributed() or launches != [2, 4, 4]:
+        raise AssertionError(f"data_parallel (e) rank {rank}: launches {launches}, group left "
+                             f"{multihost.is_distributed()}")
+    ids = [int(i) for i in loaders[0].local_ids]
+    if ids != multihost.partition_ids(loaders[0].dataset.image_ids, rank, 2).tolist():
+        raise AssertionError(f"data_parallel (e) rank {rank}: the loader's slice {ids}")
+    torch.save({"checkpoints": out.checkpoints, "step": out.trainer.step, "ids": ids,
+                "params": trainable(out.trainer.model)}, os.path.join(path, f"cli{rank}.pt"))
+    emit({"phase": "data_parallel_rank", "part": "e", "rank": rank, "world": 2,
+          "backend": "gloo", "device": str(out.trainer.device), "seconds": seconds,
+          "launches": dict(zip(KERNEL_NAMES, launches)), "image_ids": ids})
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+HEAD_LOSSES = ("mrcnn_class", "mrcnn_bbox", "layer", "amodal")
+
+
+def batch_with_rois(cfg, sd, dataset, draws, dev, tries=8):
+    """The first batch of 2 of the train phase's loader (seed 0) in which
+    each row alone, with its row of ``draws``, samples ROIs and positives
+    from ``sd``: every head loss of both rows above 0 (a row without them
+    adds nothing to the heads' gradients). Returns (the batch, its index,
+    the rows' head losses)."""
+    from sln_amodal_tpu_torch.data.pipeline import TrainLoader
+    from sln_amodal_tpu_torch.models.sln import SLNAmodal
+    from sln_amodal_tpu_torch.train.trainer import loss_on, to_device
+
+    model = SLNAmodal(cfg, device=dev)
+    model.load_state_dict(sd)
+    loader = iter(TrainLoader(dataset, cfg, seed=0, workers=1))
+    seen = []
+    for index in range(tries):
+        batch = to_device(next(loader), dev)
+        with torch.no_grad():
+            rows = [loss_on(model, {k: v[r:r + 1] for k, v in batch.items()},
+                            uniforms=(draws[0][r:r + 1], draws[1][r:r + 1])) for r in (0, 1)]
+        seen.append([{k: float(row[k]) for k in HEAD_LOSSES} for row in rows])
+        if all(v > 0 for row in seen[-1] for v in row.values()):
+            return batch, index, seen[-1]
+    raise AssertionError(f"data_parallel: no batch of {tries} samples ROIs in both rows: {seen}")
+
+
+def data_parallel(dev, tmp, tr, ev):
+    """Phase 12: data parallelism and accumulation at full width (the train
+    phase's config and data, one batch of 2 whose rows both sample ROIs,
+    ``train_start_weights`` with an RPN that sends a gradient into the
+    trunk), under deterministic algorithms:
+
+    (a) ``Trainer`` in a one-process NCCL group equals the plain
+        ``train_step`` on the same batch and draws bit for bit (all stage);
+        the gradients' all-reduce bytes and ms for heads and all;
+    (b) two processes on this card over gloo, one row each with the global
+        draws: equal to each other bit for bit, and within 1e-4 of the
+        update's largest element plus one float32 ulp of each parameter
+        (losses 1e-5 relative) of (a)'s step;
+    (c) ``accumulate_steps=2`` over the two rows: bit-unchanged after
+        micro-step 1, within (b)'s tolerance of (a) after micro-step 2;
+    (d) ``Detector(mesh=(dev, dev))`` on 3 of the eval phase's images
+        equals ``Detector`` without a mesh, and ``evaluate --data_parallel``
+        on 8 of them gives the run without the flag's results and sweeps;
+    (e) in (b)'s two processes, ``cli.train train --num_processes 2
+        --device_prep`` (two heads steps of one image each): process 0
+        alone writes the checkpoint, both end with equal parameters, each
+        loader streams its own half of the images.
+
+    Also the norm of the RPN losses' gradient on ``fpn.`` under these
+    weights, phase 9's, and phase 9's with the shared conv kept, and the
+    global norm each step clips. Kernel launches are counted over (a) and
+    (c) (``data_parallel``) and over (d)'s mesh ``detect`` and
+    ``evaluate --data_parallel`` (``data_parallel_serving``); (b) and (e)
+    count theirs in their processes."""
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.models.sln import SLNAmodal
+    from sln_amodal_tpu_torch.parallel import multihost
+    from sln_amodal_tpu_torch.train import checkpoint as ckpt
+    from sln_amodal_tpu_torch.train import trainer as trainer_mod
+    from sln_amodal_tpu_torch.train.optim import StagedSGD
+    from sln_amodal_tpu_torch.train.trainer import epoch_generator, step_uniforms, train_step
+
+    cfg, seed = tr["config"], 0
+    dataset = cli.load_train_dataset(cli.build_parser().parse_args(
+        ["train", "--dataset", tr["root"]]), "train")
+    draws = step_uniforms(epoch_generator(seed, 0), 2, cfg.post_nms_rois_training)
+    sd = train_start_weights(cfg, dev, rpn_gradient=True)
+    batch, batch_index, row_losses = batch_with_rois(cfg, sd, dataset, draws, dev)
+    # the norm under phase 9's weights (shared conv zero) and with the shared
+    # conv kept but the recipe's zero box conv, beside this phase's
+    box_zero = dict(sd, **{"rpn.conv_bbox.weight": torch.zeros_like(sd["rpn.conv_bbox.weight"])})
+    shared_zero = dict(box_zero, **{k: torch.zeros_like(sd[k]) for k in
+                                    ("rpn.conv_shared.weight", "rpn.conv_shared.bias")})
+    rpn_norm = {label: rpn_grad_to_fpn(cfg, weights, batch, draws, dev) for label, weights in
+                (("phase_9_weights", shared_zero), ("shared_conv_kept", box_zero),
+                 ("shared_conv_kept_box_conv_seeded", sd))}
+    if not rpn_norm["shared_conv_kept_box_conv_seeded"] > 0:
+        raise AssertionError(f"no RPN gradient reaches the trunk: {rpn_norm}")
+    torch.cuda.empty_cache()
+
+    kernels = train_kernels()
+    out = {"rpn_grad_to_fpn_norm": rpn_norm, "batch_index": batch_index,
+           "row_head_losses": row_losses, "clip_norm": cfg.gradient_clip_norm}
+    with deterministic():
+        # (a) the plain step, then the Trainer in a one-process NCCL group
+        model = SLNAmodal(cfg, device=dev)
+        model.load_state_dict(sd)
+        opt = StagedSGD(model, "all", cfg.learning_rate, momentum=cfg.learning_momentum,
+                        weight_decay=cfg.weight_decay, clip_norm=cfg.gradient_clip_norm)
+        before = [k.launches for k in kernels]
+        with clipped_norms() as norms:
+            plain_losses = {k: float(v) for k, v in
+                            train_step(model, opt, batch, uniforms=draws).items()}
+        plain, plain_norm = trainable(model), float(norms[0])
+        # a second step, warm, for its wall time
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_step(model, opt, batch, uniforms=draws)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        if [k.launches - b for k, b in zip(kernels, before)] != [2, 4, 4]:
+            raise AssertionError("data_parallel: the plain steps' launches")
+        del model, opt
+        torch.cuda.empty_cache()
+        start = {k: sd[k] for k in plain}
+        update = max(float((plain[k] - start[k]).abs().max()) for k in plain)
+
+        # the data-parallel path's launches: (a)'s Trainer and (c)
+        for k in kernels:
+            k.launches = 0
+        multihost.init_group(f"localhost:{free_port()}", 1, 0, "nccl")
+        try:
+            reduce = {}
+            for stage in ("all", "heads"):
+                with timed_all_reduce() as calls, clipped_norms() as norms:
+                    trainer, losses, _, walls = dp_trainer_step(cfg, sd, dev, stage,
+                                                                OneBatch(batch), seed)
+                reduce[stage] = dict(gradient_bucket(calls), tensors=len(trainer.optimizer.params),
+                                     step_wall_ms=walls[0], clipped_norm=float(norms[0]))
+                if stage == "all":
+                    nccl = trainable(trainer.model)
+                    if losses != plain_losses or not all(torch.equal(nccl[k], plain[k])
+                                                         for k in plain):
+                        raise AssertionError("data_parallel (a): the NCCL world-1 step "
+                                             "differs from the plain step")
+                del trainer
+                torch.cuda.empty_cache()
+        finally:
+            multihost.shutdown()
+        out["a"] = dict(world=1, backend="nccl", bit_equal=True, plain_step_wall_ms=plain_ms,
+                        losses=plain_losses, clipped_norm=plain_norm,
+                        clip_binds=plain_norm > cfg.gradient_clip_norm, update_max_abs=update,
+                        all_reduce=reduce)
+        emit({"phase": "data_parallel", "part": "a", **out["a"]})
+
+        # (c) micro-batches of one row with the rows' draws of (a), two per
+        # update: checked after micro-steps 1 and 2, timed warm on 3 and 4
+        halves = [{k: v[i:i + 1] for k, v in batch.items()} for i in (0, 1)]
+        rows = OneBatch(*[(draws[0][i:i + 1], draws[1][i:i + 1]) for i in (0, 1)])
+        seen, step_losses = {}, []
+
+        def check(epoch, trainer):
+            if epoch == 1:
+                seen.update(equal=all(torch.equal(v.detach().cpu(), sd[k])
+                                      for k, v in trainer.model.named_parameters()),
+                            accumulated=len(trainer.optimizer.accumulated))
+            if epoch == 2:
+                seen["params"] = trainable(trainer.model)
+
+        def recorded_step(*args, **kwargs):
+            losses = train_step(*args, **kwargs)
+            step_losses.append({k: float(v) for k, v in losses.items()})
+            return losses
+
+        row_draws = iter(rows)
+        trainer_mod.step_uniforms = lambda generator, b, rois: next(row_draws)
+        trainer_mod.train_step = recorded_step
+        try:
+            with clipped_norms() as norms:
+                trainer, _, _, walls = dp_trainer_step(
+                    cfg, sd, dev, "all", OneBatch(*halves), seed, steps=4, accumulate_steps=2,
+                    on_epoch_end=check)
+        finally:
+            trainer_mod.step_uniforms, trainer_mod.train_step = step_uniforms, train_step
+        del trainer
+        torch.cuda.empty_cache()
+    launches = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the data-parallel path never launched: {launches}")
+
+    def norm_of_mean(norm, label):
+        """The norm clipped must be (a)'s within 1e-4 relative: a sum of
+        the rows' gradients in place of their mean would double it, and
+        the clip, which binds here, would hide that from the parameters."""
+        if not abs(norm - plain_norm) <= 1e-4 * plain_norm:
+            raise AssertionError(f"data_parallel {label}: clipped norm {norm}, (a)'s {plain_norm}")
+
+    def held(params, label):
+        """Max |diff| from (a)'s parameters, and the check: within 1e-4 of
+        (a)'s largest update element plus one float32 ulp of the parameter
+        (p + u rounds to a float32: one update off by 1e-12 can land one
+        ulp away, and at lr 1e-3 the ulp of a parameter near 1 is above
+        1e-4 of the update)."""
+        err, beyond = 0.0, 0
+        for k in plain:
+            diff = (params[k] - plain[k]).abs()
+            mag = plain[k].abs()
+            ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+            beyond += int((diff > 1e-4 * update + ulp).sum())
+            err = max(err, float(diff.max()))
+        if beyond:
+            raise AssertionError(f"data_parallel {label}: {beyond} parameters beyond 1e-4 of "
+                                 f"(a)'s update {update} plus one ulp (max |diff| {err})")
+        return err
+
+    if not seen["equal"] or seen["accumulated"] != len(plain):
+        raise AssertionError(f"data_parallel (c): after micro-step 1 {seen}")
+    if not all(step[k] > 0 for step in step_losses[:2] for k in HEAD_LOSSES):
+        raise AssertionError(f"data_parallel (c): a row sampled no ROI: {step_losses[:2]}")
+    clipped = [None if n is None else float(n) for n in norms]
+    norm_of_mean(clipped[1], "(c)")
+    acc_err = held(seen["params"], "(c)")
+    out["c"] = dict(accumulate_steps=2, unchanged_after_micro_step_1=True,
+                    accumulator_tensors=seen["accumulated"], param_max_abs_err=acc_err,
+                    param_err_of_update=acc_err / update, micro_step_wall_ms=walls,
+                    accumulated_step_wall_ms=sum(walls[2:]), plain_step_wall_ms=plain_ms,
+                    clipped_norms=clipped,
+                    micro_step_losses=step_losses)
+    emit({"phase": "data_parallel", "part": "c", **out["c"]})
+
+    # (b) and (e): two gloo processes on this card
+    path = os.path.join(tmp, "data_parallel")
+    os.makedirs(path, exist_ok=True)
+    model_path = ckpt.save(sd, os.path.join(path, "start"), "dp_start", 1)
+    torch.save({"config": cfg, "seed": seed, "state_dict": sd, "device": str(dev),
+                "batch": {k: v.cpu() for k, v in batch.items()}, "root": tr["root"],
+                "model": model_path, "cli_port": free_port()}, os.path.join(path, "in.pt"))
+    torch.cuda.empty_cache()
+    port = str(free_port())
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "data_parallel_worker",
+                               str(rank), port, path], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"data_parallel (b): process {rank} failed:\n{log[-4000:]}")
+        print("\n".join(ln for ln in log.splitlines() if '"data_parallel_rank"' in ln))
+    seconds = time.perf_counter() - t
+    ranks = [torch.load(os.path.join(path, f"out{r}.pt"), weights_only=False) for r in (0, 1)]
+    if ranks[0]["losses"] != ranks[1]["losses"] or not all(
+            torch.equal(ranks[0]["params"][k], ranks[1]["params"][k]) for k in plain):
+        raise AssertionError("data_parallel (b): the two processes' steps differ")
+    loss_err = max(abs(ranks[0]["losses"][k] - plain_losses[k]) / abs(plain_losses[k])
+                   for k in plain_losses if plain_losses[k] != 0)
+    if loss_err > 1e-5:
+        raise AssertionError(f"data_parallel (b): losses {loss_err} relative from (a)'s")
+    gloo_err = held(ranks[0]["params"], "(b)")
+    norm_of_mean(ranks[0]["norm"], "(b)")
+    out["b"] = dict(world=2, backend="gloo", ranks_bit_equal=True, param_max_abs_err=gloo_err,
+                    param_err_of_update=gloo_err / update, loss_max_rel_err=loss_err,
+                    clipped_norm=ranks[0]["norm"], seconds=seconds)
+    emit({"phase": "data_parallel", "part": "b", **out["b"]})
+
+    runs = [torch.load(os.path.join(path, f"cli{r}.pt"), weights_only=False) for r in (0, 1)]
+    written = runs[0]["checkpoints"]
+    if (len(written) != 1 or runs[1]["checkpoints"] != written
+            or not all(os.path.exists(w + suffix) for w in written for suffix in ("", ".state"))
+            or sum("checkpoint:" in log for log in logs) != 1
+            or runs[0]["step"] != 2 or runs[1]["step"] != 2):
+        raise AssertionError(f"data_parallel (e): checkpoints {written}, "
+                             f"{runs[1]['checkpoints']}, steps {runs[0]['step']}, {runs[1]['step']}")
+    if not all(torch.equal(v, runs[1]["params"][k]) for k, v in runs[0]["params"].items()):
+        raise AssertionError("data_parallel (e): the two processes' parameters differ")
+    ids = runs[0]["ids"] + runs[1]["ids"]
+    if sorted(ids) != sorted(int(i) for i in dataset.image_ids):
+        raise AssertionError(f"data_parallel (e): the processes' slices {ids}")
+    out["e"] = dict(world=2, backend="gloo", command="cli.train train --num_processes 2 "
+                    "--device_prep --stage heads --steps_per_epoch 2 --batch_size 1",
+                    checkpoint_writers=1, params_bit_equal=True,
+                    images_per_process=[len(r["ids"]) for r in runs])
+    emit({"phase": "data_parallel", "part": "e", **out["e"]})
+
+    # (d) serving over a mesh of two replicas on this card
+    from sln_amodal_tpu_torch.infer import Detector
+
+    args = evaluate_args(ev["root"], ev["model"], 8, dev)
+    eval_ds, _, ids = cli.load_eval_dataset(args)
+    single = cli.make_detector(args, cli.eval_config(args))
+    images = [eval_ds.load_image(i) for i in ids[:3]]
+    ref = single.detect(images)
+    evaluate = ["evaluate", "--dataset", ev["root"], "--model", ev["model"], "--limit", "8",
+                "--eval_batch", "8", "--device", str(dev)]
+    runs = [cli.main(evaluate)]
+    # the serving path's launches: the mesh detect and evaluate --data_parallel
+    for k in kernels:
+        k.launches = 0
+    mesh = Detector(single.config, single.model.state_dict(), mesh=(dev, dev))
+    got = mesh.detect(images)
+    del single, mesh
+    runs.append(cli.main(evaluate + ["--data_parallel"]))
+    serving = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
+    if min(serving["nms"], serving["roi_align"]) == 0 or serving["roi_align_backward"]:
+        raise AssertionError(f"data_parallel (d): the serving path's launches {serving}")
+    score_err = 0.0
+    for r, g in zip(ref, got):
+        if not all(np.array_equal(r[k], g[k]) for k in ("rois", "class_ids", "masks")):
+            raise AssertionError("data_parallel (d): the mesh Detector's detections differ")
+        score_err = max([score_err] + list(np.abs(r["scores"] - g["scores"])))
+    if len(got) != 3 or score_err > 1e-5 or not min(len(r["scores"]) for r in ref):
+        raise AssertionError(f"data_parallel (d): {len(got)} results, scores {score_err}")
+    if runs[0].results != runs[1].results or not all(
+            np.array_equal(runs[0].stats[k], runs[1].stats[k]) for k in runs[0].stats):
+        raise AssertionError("data_parallel (d): evaluate --data_parallel differs")
+    out["d"] = dict(mesh=2, images=3, score_max_abs_err=float(score_err),
+                    detections=[len(r["scores"]) for r in got],
+                    evaluate_results=len(runs[1].results), evaluate_sweeps_equal=True)
+    emit({"phase": "data_parallel", "part": "d", **out["d"]})
+    out["launches"], out["serving_launches"] = launches, serving
+    emit({"phase": "data_parallel", "launches": launches, "serving_launches": serving,
+          "rpn_grad_to_fpn_norm": rpn_norm, "batch_index": batch_index,
+          "row_head_losses": row_losses})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1335,6 +1879,7 @@ def main() -> int:
         tr = train_path(dev, tmp)
         prep = device_prep_check(dev, tr)
         trp = train_device_prep(dev, tmp, tr, prep)
+        dp = data_parallel(dev, tmp, tr, ev)
 
     # forward kernels: times at the evaluate path's shapes (batch 8),
     # launches of the evaluate run; the backward: times at the train step's
@@ -1353,7 +1898,9 @@ def main() -> int:
             "launches_by_path": {"detect": path["launches"][key],
                                  "evaluate": ev["launches"][key],
                                  "train": tr["launches"][key],
-                                 "train_device_prep": trp["launches"][key]},
+                                 "train_device_prep": trp["launches"][key],
+                                 "data_parallel": dp["launches"][key],
+                                 "data_parallel_serving": dp["serving_launches"][key]},
             "batch": batch, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "device_ms": k["device_ms"]})
@@ -1365,4 +1912,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["data_parallel_worker"]:
+        sys.exit(data_parallel_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -15,9 +15,14 @@ saves a reference-layout ``.pth`` (which ``evaluate`` loads) and a
 ``.pth.state`` resume file after every epoch; with ``--device_prep`` its
 training and validation targets are built on ``--device``
 (:class:`DevicePrepLoader`), as in the JAX package's CLI, which reads the
-flag only in ``train``. The flags of later slices (``--data_parallel``,
-``--coordinator``, ``--trace_dir``) exit with an error naming the ROADMAP
-item that ports them.
+flag only in ``train``. ``evaluate --data_parallel`` splits each eval batch
+over every local card (``Detector(mesh=...)``). Data-parallel training is
+one process per card, each launched with ``--coordinator host:port
+--num_processes N --process_id i``; each process uses card ``i`` modulo the
+host's cards (unless ``--device cpu``), streams its slice of the dataset
+and trains on ``--batch_size`` images per step, and process 0 writes the
+checkpoints. ``--trace_dir`` exits with an error naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from ..config import Config, inference_config, training_config
 from ..convert import init_params
@@ -38,6 +44,8 @@ from ..data.pipeline import TrainLoader
 from ..eval_amodal.amodal_eval import AmodalEval, evaluate_sweep
 from ..eval_amodal.coco_results import build_coco_results_crops
 from ..infer import Detector, PendingDetect
+from ..parallel import multihost
+from ..parallel.mesh import make_mesh
 from ..train import checkpoint as ckpt
 from ..train.optim import StageSchedule
 from ..train.trainer import Trainer
@@ -48,8 +56,6 @@ DEFAULT_GLM_WEIGHTS = "./checkpoints/deeplabv2.pth"
 
 # what later slices of the port bring, by ROADMAP item
 NOT_PORTED = {
-    "data_parallel": "--data_parallel is ROADMAP item 13 (data parallelism)",
-    "coordinator": "--coordinator is ROADMAP item 13 (data parallelism)",
     "trace_dir": "--trace_dir is ROADMAP item 14 (serving and tooling)",
 }
 
@@ -72,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the weights that no checkpoint provides, of the "
                         "loader and of the target sampling")
-    p.add_argument("--batch_size", type=int, default=1, help="train: images per step")
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="train: images per step of each process")
     p.add_argument("--steps_per_epoch", type=int, default=2500)
     p.add_argument("--sticky_freeze", action="store_true",
                    help="reproduce the reference's sticky layer freezing")
@@ -89,12 +96,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="images per device batch during evaluation")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
-    p.add_argument("--data_parallel", action="store_true", help="not ported yet")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="evaluate: shard each eval batch over ALL local "
+                        "devices (data-parallel serving; detections are "
+                        "identical to single-device, see test_torch_parallel)")
     p.add_argument("--device_prep", action="store_true",
                    help="build training targets (sem-dist decode, bboxes, RPN matching) "
                         "on --device instead of in host numpy; equivalence pinned by "
                         "tests/test_torch_device_prep.py")
-    p.add_argument("--coordinator", default=None, help="not ported yet")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process training: host:port of process 0 "
+                        "(launch one process per card with --num_processes "
+                        "and --process_id; gradients average over a "
+                        "torch.distributed group, see parallel/multihost.py)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--trace_dir", default=None, help="not ported yet")
     return p
 
@@ -132,8 +148,16 @@ def resolve_weights(args, config: Config, template):
 
 
 def make_detector(args, config: Config) -> Detector:
+    """The evaluate detector on ``--device``; with ``--data_parallel``, one
+    replica on each local card (on ``--device cpu``: the CPU alone)."""
     template = init_params(config, seed=args.seed, device=args.device)
-    return Detector(config, resolve_weights(args, config, template), device=args.device)
+    mesh = None
+    if args.data_parallel:
+        cuda = torch.device(args.device).type == "cuda"
+        mesh = make_mesh() if cuda else make_mesh([args.device])
+        log(f"Data-parallel eval over {len(mesh)} device(s)")
+    return Detector(config, resolve_weights(args, config, template), device=args.device,
+                    mesh=mesh)
 
 
 def load_eval_dataset(args):
@@ -278,9 +302,12 @@ def run_train(args) -> Training:
     state_dict = resolve_weights(args, config, template)
     print_network(state_dict, "sln_amodal")
     trainer = Trainer(config, state_dict, device=args.device)
-    loader_cls, loader_kw = TrainLoader, {}
+    # each process streams its own slice of the data
+    loader_cls = TrainLoader
+    loader_kw = dict(process_index=multihost.process_index(),
+                     process_count=multihost.process_count())
     if args.device_prep:
-        loader_cls, loader_kw = DevicePrepLoader, {"device": args.device}
+        loader_cls, loader_kw["device"] = DevicePrepLoader, args.device
     loader = loader_cls(train_ds, config, seed=args.seed, **loader_kw)
     val_loader = None
     if args.validate_steps > 0:
@@ -290,11 +317,15 @@ def run_train(args) -> Training:
     written: List[str] = []
 
     def save_epoch(epoch: int) -> None:
-        path = ckpt.save(trainer.model.state_dict(), args.logs, config.name, epoch)
-        ckpt.save_train_state(trainer.model, trainer.optimizer, trainer.step, args.logs,
-                              config.name, epoch)
+        # process 0 writes (two writers of one path race); the others wait
+        path = ckpt.checkpoint_path(args.logs, config.name, epoch)
+        if multihost.process_index() == 0:
+            ckpt.save(trainer.model.state_dict(), args.logs, config.name, epoch)
+            ckpt.save_train_state(trainer.model, trainer.optimizer, trainer.step, args.logs,
+                                  config.name, epoch)
+            log(f"checkpoint: {path}")
+        multihost.barrier()
         written.append(path)
-        log(f"checkpoint: {path}")
         if val_loader is not None:
             val = trainer.validate(val_loader, steps=args.validate_steps)
             log("  val " + " ".join(f"{k}={v:.4f}" for k, v in sorted(val.items())))
@@ -317,12 +348,25 @@ def main(argv=None):
     """Runs the command; returns its :class:`Training` or :class:`Evaluation`."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
+    distributed = bool(args.num_processes and args.num_processes > 1)
+    if distributed:
+        # before anything touches a card: one process per card
+        if torch.device(args.device).type == "cuda":
+            args.device = str(multihost.local_device(args.process_id or 0))
+        multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                             device=args.device)
+        log(f"Multi-process: process {multihost.process_index()}/"
+            f"{multihost.process_count()} on {args.device}")
     log(f"Command: {args.command}")
     log(f"Dataset: {args.dataset}")
     log(f"Model:   {args.model}")
-    if args.command == "train":
-        return run_train(args)
-    return run_evaluate(args)
+    try:
+        if args.command == "train":
+            return run_train(args)
+        return run_evaluate(args)
+    finally:
+        if distributed:
+            multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -31,7 +31,13 @@ when there are more objects than GT slots) are explicit inputs
 module's, the draws differ. The bit-field holds 32 object slots, so the
 decode is exact for any valid map; crowd annotations never occur on the
 sem-dist route, so the crowd branch of ``build_rpn_targets`` is host-only.
-Single process: the multi-process loader is ROADMAP item 13.
+
+In a data-parallel run each process streams its own slice of the dataset
+and preps its own rows on its own card. The JAX module assembles the
+encoded rows into one global batch for one SPMD prep program, so a sample
+over the RLE budget (whose dense fallback would desynchronise the processes'
+programs) is skipped there and counted. No program is shared here, but the
+skip is kept, so that the sample stream equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import torch
 from ..device import resolve_device
 from ..utils import image as image_utils
 from . import semdist
-from .pipeline import TrainLoader
+from .pipeline import SampleOverflowError, TrainLoader
 
 NOBJ = 32  # sem-dist object slots (bit-field width per 32-bit half)
 RLE_KEYS = ("image", "run_starts", "run_lo", "run_hi", "n_objects")
@@ -437,9 +443,11 @@ class DevicePrepLoader(TrainLoader):
     Yields the host loader's batch dicts as tensors on ``device``.
 
     A batch whose samples all fit the RLE budget uploads the runs; otherwise
-    the dense planes (``route_counts`` counts both). One prefetch thread
-    uploads and prepares the next batch while the caller trains on this
-    one."""
+    the dense planes (``route_counts`` counts both). With more than one
+    process, every batch uploads the runs: a sample over the budget raises
+    :class:`SampleOverflowError` in the worker, which skips and counts it.
+    One prefetch thread uploads and prepares the next batch while the
+    caller trains on this one."""
 
     def __init__(self, dataset, config, *args, device="cuda", **kwargs):
         super().__init__(dataset, config, *args, **kwargs)
@@ -458,22 +466,31 @@ class DevicePrepLoader(TrainLoader):
                     "--device_prep")
         self._rle_budget = rle_budget_for(self.config.image_size)
         self._anchors = torch.from_numpy(self.anchors).to(self.device, torch.float32)
+        self._multi = self.process_count > 1
+        # the process index folded into the draw stream, so that each
+        # process's slice draws its own augmentation and anchor subsample
+        seed = np.random.SeedSequence([int(self.rng.integers(2 ** 63)), self.process_index])
         self._generator = torch.Generator(device=self.device).manual_seed(
-            int(self.rng.integers(2 ** 63)))
+            int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1)))
         self.route_counts = {"rle": 0, "dense": 0}
 
     def _collate(self, batch):
         """Stack the samples; build the dense planes only for a batch that
         will need them (a sample over the RLE budget)."""
         out = {k: np.stack([b[k] for b in batch]) for k in RLE_KEYS + ("n_runs",)}
-        if int(out["n_runs"].max()) > self._rle_budget:
+        if not self._multi and int(out["n_runs"].max()) > self._rle_budget:
             planes = [planes_from_small(b["small_map"]) for b in batch]
             out["label_lo"] = np.stack([p[0] for p in planes])
             out["label_hi"] = np.stack([p[1] for p in planes])
         return out
 
     def _make_one_sample(self, image_id: int, rng):
-        return encode_sample(self.dataset, self.config, image_id, dense_planes=False)
+        enc = encode_sample(self.dataset, self.config, image_id, dense_planes=False)
+        if enc is not None and self._multi and int(enc["n_runs"]) > self._rle_budget:
+            raise SampleOverflowError(
+                f"sample {image_id} needs {int(enc['n_runs'])} RLE runs > budget "
+                f"{self._rle_budget}; skipped on multi-process runs")
+        return enc
 
     def _draws(self, batch_size: int) -> Draws:
         return draw(self._generator, batch_size, self._anchors.shape[0])

@@ -2,7 +2,8 @@
 
 The port's own copy of the JAX package's ``data/pipeline.py`` (host-side
 numpy, so the same code; the port imports nothing from the JAX package).
-Single process only: the multi-process dataset split is ROADMAP item 13.
+Each process of a data-parallel run streams its own slice of the dataset
+(``parallel/multihost.py::partition_ids``).
 
 Host-side numpy equivalent of the reference generator
 (``load_image_gt`` + ``build_rpn_targets``, the reference's
@@ -30,6 +31,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from ..ops.anchors import config_anchors
+from ..parallel import multihost
+from ..parallel.multihost import partition_ids
 from ..utils import image as image_utils
 
 
@@ -206,21 +209,6 @@ def make_training_sample(dataset, config, image_id: int, anchors: np.ndarray,
     }
 
 
-def partition_ids(ids, index: Optional[int] = None,
-                  count: Optional[int] = None) -> np.ndarray:
-    """This process's slice of ``ids``: all of them, in the one process the
-    port runs (the JAX package's ``parallel/multihost.py::partition_ids``
-    with one process). Another process index or count raises: the
-    multi-process split comes with data parallelism (ROADMAP item 13)."""
-    index = 0 if index is None else index
-    count = 1 if count is None else count
-    if (index, count) != (0, 1):
-        raise NotImplementedError(
-            f"process {index} of {count}: multi-process loading is ROADMAP item 13 "
-            "(data parallelism)")
-    return np.asarray(ids)
-
-
 class SampleOverflowError(ValueError):
     """A sample exceeded a static capacity budget (e.g. RLE run count on
     multi-host runs) and was dropped by the containment path. Counted
@@ -247,9 +235,14 @@ class TrainLoader:
         self.error_count = 0
         self.overflow_count = 0
         self._samples_seen = 0
-        # one process streams the whole dataset
+        # each process streams only its own dataset slice (one process: all
+        # of it); by default the process group's rank and size
+        self.process_index = (multihost.process_index() if process_index is None
+                              else process_index)
+        self.process_count = (multihost.process_count() if process_count is None
+                              else process_count)
         self.local_ids = partition_ids(
-            dataset.image_ids, process_index, process_count)
+            dataset.image_ids, self.process_index, self.process_count)
 
     def _make_one_sample(self, image_id: int, rng) -> Optional[Dict[str, np.ndarray]]:
         """One image's training sample (a hook for loaders that build

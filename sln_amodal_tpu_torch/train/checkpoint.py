@@ -13,8 +13,9 @@ takes the two other files the reference uses:
 
 Checkpoints the port writes are ``{log_dir}/{name}/sln_amodal_{name}_{epoch:04d}.pth``,
 and beside each, for a resume in the middle of a stage, ``<that>.state``
-(:func:`save_train_state`: the state_dict, the SGD momentum buffers and the
-stage's step counter, in torch format).
+(:func:`save_train_state`: the state_dict, the SGD momentum buffers, the
+gradient accumulator with its micro-step count, and the stage's step
+counter, in torch format).
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def save(state_dict: Mapping[str, torch.Tensor], log_dir: str, name: str, epoch:
 def save_train_state(model, optimizer, step: int, log_dir: str, name: str,
                      epoch: int) -> str:
     """The full resume state of a stage at the end of ``epoch``: the model's
-    state_dict, the optimizer's (momentum buffers) and the step counter."""
+    state_dict, the optimizer's (momentum buffers, and the accumulated
+    gradients of a run cut between micro-steps) and the step counter."""
     path = checkpoint_path(log_dir, name, epoch) + ".state"
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},

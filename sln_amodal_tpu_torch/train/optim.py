@@ -21,15 +21,25 @@ stage ("heads", "5+", "4+", "3+", "all", "mask").
 - Each stage's trainable set is computed afresh (the intended schedule);
   ``sticky_freeze`` reproduces the reference's effective behaviour, where a
   stage can only shrink the trainable set.
+- In a data-parallel run the gradients are averaged over the processes
+  before the clip (the JAX step clips the psum-averaged gradient).
+- ``accumulate_steps = k > 1`` is ``optax.MultiSteps(every_k_schedule=k)``
+  (optax 0.2.6, ``transforms/_accumulation.py``): a running mean of the
+  gradients, ``acc + (g - acc) / (mini_step + 1)``, and the clipped SGD
+  step on that mean on every k-th micro-step only; on the others the
+  parameters and the momentum stay as they are. The reference steps its
+  optimizer once every BATCH_SIZE micro-batches (``model.py:442-448``).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Iterable, List, Mapping, Sequence, Union
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
+
+from ..parallel import multihost
 
 GLM_PREFIX = "GLM_modual."
 _FPN_HEAD = re.compile(r"fpn\.P[2-5]_conv[12]\.")
@@ -112,14 +122,17 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
 
 class StagedSGD:
     """One stage's optimizer over ``model`` (the JAX package's
-    ``make_optimizer``: clip(5.0) -> + wd * p -> momentum -> -lr): sets
+    ``make_optimizer``: clip(5.0) -> + wd * p -> momentum -> -lr, wrapped in
+    ``optax.MultiSteps`` when ``accumulate_steps > 1``): sets
     ``requires_grad`` by the stage's mask (the rest of the model takes no
-    gradient), and steps as the optax chain does. A new stage takes a new
-    one, with fresh momentum."""
+    gradient and has no accumulator), and steps as the optax chain does. A
+    new stage takes a new one, with fresh momentum."""
 
     def __init__(self, model: nn.Module, stage: Stage, learning_rate: float,
                  momentum: float = 0.9, weight_decay: float = 1e-4,
-                 clip_norm: float = 5.0):
+                 clip_norm: float = 5.0, accumulate_steps: int = 1):
+        if accumulate_steps < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, not {accumulate_steps}")
         self.mask = trainable_mask(model, stage)
         self.params = []
         for name, p in model.named_parameters():
@@ -130,23 +143,63 @@ class StagedSGD:
         self.sgd = torch.optim.SGD(self.params, lr=learning_rate, momentum=momentum,
                                    dampening=0.0, weight_decay=weight_decay,
                                    nesterov=False)
+        self.accumulate_steps = accumulate_steps
+        self.mini_step = 0
+        # the running mean of the gradients, one tensor per trained parameter
+        self.accumulated = ([torch.zeros_like(p) for p in self.params]
+                            if accumulate_steps > 1 else None)
 
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)
 
-    def step(self) -> torch.Tensor:
-        """Clip, decay, momentum, step; returns the gradient's global norm.
+    def step(self) -> Optional[torch.Tensor]:
+        """Average over the processes, accumulate, then on the k-th
+        micro-step clip, decay, momentum, step; returns the global norm of
+        the gradient stepped with (None on a micro-step that does not step).
         A trained parameter the loss did not reach steps with a zero
         gradient, as in optax (weight decay and momentum still apply)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_([p.grad for p in self.params], self.clip_norm)
+        grads = [p.grad for p in self.params]
+        if multihost.is_distributed():
+            multihost.all_reduce_mean_(grads)
+        if self.accumulated is not None:
+            with torch.no_grad():
+                acc = self.accumulated
+                count = torch.tensor(self.mini_step + 1, dtype=acc[0].dtype,
+                                     device=acc[0].device)
+                torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc),
+                                                            count))
+            self.mini_step = (self.mini_step + 1) % self.accumulate_steps
+            if self.mini_step:
+                return None
+            torch._foreach_copy_(grads, acc)
+            torch._foreach_zero_(acc)
+        norm = clip_by_global_norm_(grads, self.clip_norm)
         self.sgd.step()
         return norm
 
     def state_dict(self) -> dict:
-        return self.sgd.state_dict()
+        """The SGD momentum, and the accumulator with its micro-step count."""
+        return {"sgd": self.sgd.state_dict(), "mini_step": self.mini_step,
+                "accumulated": None if self.accumulated is None else
+                [a.detach().cpu() for a in self.accumulated]}
 
     def load_state_dict(self, state: dict) -> None:
-        self.sgd.load_state_dict(state)
+        """Restores :meth:`state_dict`'s layout, or the bare SGD state that
+        ``.state`` files held before accumulation (no accumulated
+        gradients: micro-step 0)."""
+        if "sgd" not in state:
+            state = {"sgd": state, "mini_step": 0, "accumulated": None if
+                     self.accumulated is None else [torch.zeros_like(p) for p in self.params]}
+        self.sgd.load_state_dict(state["sgd"])
+        if (state["accumulated"] is None) != (self.accumulated is None):
+            raise ValueError("the saved optimizer state and this one disagree on "
+                             "gradient accumulation")
+        self.mini_step = int(state["mini_step"])
+        if self.accumulated is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(self.accumulated,
+                                     [a.to(self.accumulated[0].device)
+                                      for a in state["accumulated"]])

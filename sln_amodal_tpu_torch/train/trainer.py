@@ -1,15 +1,25 @@
 """Training step and staged training loop: port of the JAX package's
-``train/trainer.py`` (``:37-70``, ``:126-305``), on one device, no mesh.
+``train/trainer.py`` (``:37-70``, ``:126-305``).
 
 One step: the training graph (:meth:`SLNAmodal.train_step_outputs`), the
 six losses of each image averaged over the batch (:func:`batched_losses`),
 the backward (through the RoIAlign backward kernel on the card), then the
-stage's clipped SGD step (:class:`.optim.StagedSGD`).
+stage's clipped SGD step (:class:`.optim.StagedSGD`), which with
+``accumulate_steps > 1`` steps on every k-th micro-batch only.
+
+Data parallelism is one process per card in a ``torch.distributed`` group
+(``parallel/multihost.py``), each on its local batch: the optimizer
+averages the gradients over the processes before the clip, the logged and
+the validation losses are averaged too, and every process starts from
+process 0's parameters. What the JAX package's sharded step computes on the
+concatenated batch, this computes across the processes.
 
 Randomness: the target layer's draws come from a ``torch.Generator``
 seeded from ``(seed, epoch)``, so a run resumed at epoch k draws what an
 uninterrupted run drew from epoch k on (the JAX package folds the epoch
-into its key, ``trainer.py:211``).
+into its key, ``trainer.py:211``). Every process draws the global batch's
+uniforms and takes its own rows (:func:`step_uniforms`), so N processes
+sample the ROIs one process samples on their concatenated batches.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 from ..config import Config
 from ..device import resolve_device
 from ..models.sln import SLNAmodal, TrainingOutputs
+from ..parallel import multihost
 from ..utils.logging import StepTimer, log
 from . import checkpoint as ckpt_lib
 from . import losses as losses_lib
@@ -72,16 +83,39 @@ def loss_on(model: SLNAmodal, batch: Mapping[str, torch.Tensor],
     return batched_losses(out, batch)
 
 
+def mean_over_processes(losses: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Detached losses, averaged over the process group (one all-reduce) when
+    there is one: the global batch's mean, equal on every process."""
+    if not multihost.is_distributed():
+        return {k: v.detach() for k, v in losses.items()}
+    keys = sorted(losses)
+    values = torch.stack([losses[k].detach() for k in keys])
+    multihost.all_reduce_mean_([values])
+    return dict(zip(keys, values.unbind()))
+
+
 def train_step(model: SLNAmodal, optimizer: StagedSGD, batch: Mapping[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                uniforms=None) -> Dict[str, torch.Tensor]:
-    """One forward -> losses -> backward -> clipped SGD step; returns the
-    losses (device tensors, detached)."""
+    """One forward -> losses -> backward -> optimizer step (averaged over
+    the processes, accumulated, clipped); returns the losses (device
+    tensors, detached, averaged over the processes)."""
     losses = loss_on(model, batch, generator, uniforms)
     optimizer.zero_grad()
     losses["total"].backward()
     optimizer.step()
-    return {k: v.detach() for k, v in losses.items()}
+    return mean_over_processes(losses)
+
+
+def step_uniforms(generator: torch.Generator, batch_size: int, rois: int):
+    """This process's rows (pos, neg) [batch_size, rois] of the target
+    layer's uniforms for the global batch of ``batch_size`` rows per
+    process: every process draws all of them from the same generator. One
+    process draws what the target layer draws itself."""
+    rank, world = multihost.process_index(), multihost.process_count()
+    draws = torch.rand((2, batch_size * world, rois), generator=generator, dtype=torch.float32)
+    rows = draws[:, rank * batch_size:(rank + 1) * batch_size]
+    return rows[0], rows[1]
 
 
 def epoch_generator(seed: int, epoch: int) -> torch.Generator:
@@ -91,8 +125,10 @@ def epoch_generator(seed: int, epoch: int) -> torch.Generator:
 
 
 class Trainer:
-    """Staged training of one model on one device (the reference's
-    ``train_model``). ``state_dict`` has the reference layout."""
+    """Staged training of one model on one device, one of the processes of
+    a data-parallel run if there is a process group (the reference's
+    ``train_model``). ``state_dict`` has the reference layout; in a group,
+    process 0's is broadcast to the others."""
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  device="cuda"):
@@ -100,6 +136,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = SLNAmodal(config, device=self.device)
         self.model.load_state_dict(state_dict, strict=True)
+        if multihost.is_distributed():
+            multihost.broadcast_(self.model.state_dict().values())
         self.epoch = 0
         self.optimizer: Optional[StagedSGD] = None
         self.step = 0               # steps of the current stage
@@ -112,17 +150,16 @@ class Trainer:
         """Epochs ``start_epoch .. epochs - 1`` of one stage, with a fresh
         optimizer (momentum zero, step 0) unless ``resume_state_path`` (a
         ``.state`` file of :func:`checkpoint.save_train_state`) restores the
-        parameters, the momentum and the step counter of a run cut in the
-        middle of the stage. Returns the last logged losses."""
-        if accumulate_steps > 1:
-            raise NotImplementedError(
-                "gradient accumulation (optax.MultiSteps in the JAX package) is not "
-                "ported: ROADMAP item 13 (data parallelism) brings it")
+        parameters, the momentum, the accumulated gradients and the step
+        counter of a run cut in the middle of the stage. A step is one
+        micro-batch: the parameters move on every ``accumulate_steps``-th.
+        Returns the last logged losses."""
         cfg = self.config
         steps = steps_per_epoch or cfg.steps_per_epoch
         self.optimizer = StagedSGD(
             self.model, stage, learning_rate, momentum=cfg.learning_momentum,
-            weight_decay=cfg.weight_decay, clip_norm=cfg.gradient_clip_norm)
+            weight_decay=cfg.weight_decay, clip_norm=cfg.gradient_clip_norm,
+            accumulate_steps=accumulate_steps)
         self.step = 0
         if resume_state_path is not None:
             self.step = ckpt_lib.restore_train_state(resume_state_path, self.model,
@@ -136,7 +173,9 @@ class Trainer:
             generator = epoch_generator(seed, epoch)
             for step in range(steps):
                 batch = to_device(next(it), self.device)
-                losses = train_step(self.model, self.optimizer, batch, generator)
+                uniforms = step_uniforms(generator, batch["images"].shape[0],
+                                         cfg.post_nms_rois_training)
+                losses = train_step(self.model, self.optimizer, batch, uniforms=uniforms)
                 self.step += 1
                 if step % 50 == 0 or step == steps - 1:
                     last = {k: float(v) for k, v in losses.items()}
@@ -152,13 +191,19 @@ class Trainer:
     @torch.no_grad()
     def validate(self, loader: Iterable, steps: Optional[int] = None,
                  seed: int = 1) -> Dict[str, float]:
-        """Mean losses over ``steps`` validation batches; no update."""
+        """Mean losses over ``steps`` validation batches; no update. In a
+        process group each process runs its own batches, and each step's
+        losses are averaged over the processes, as the sharded JAX
+        validation averages over the global batch."""
         steps = steps or self.config.validation_steps
         generator = torch.Generator().manual_seed(seed)
         totals: Dict[str, float] = {}
         it = iter(loader)
         for _ in range(steps):
-            losses = loss_on(self.model, to_device(next(it), self.device), generator)
+            batch = to_device(next(it), self.device)
+            uniforms = step_uniforms(generator, batch["images"].shape[0],
+                                     self.config.post_nms_rois_training)
+            losses = mean_over_processes(loss_on(self.model, batch, uniforms=uniforms))
             for k, v in losses.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
         return {k: v / steps for k, v in totals.items()}

@@ -256,20 +256,27 @@ def test_roi_align_autograd_uses_both_kernels(cuda_device):
         assert ROI_ALIGN_BACKWARD_KERNEL.launches == before
 
 
-def test_detector_on_card_matches_cpu(cuda_device):
-    """The whole slice in float64 on the card (kernels) and on the CPU
-    (plain versions), same seeded weights: equal boxes and classes."""
-    cfg = Config(image_size=128, backbone="resnet50", glm_input_size=65,
-                 pre_nms_limit=400, post_nms_rois_inference=64,
-                 detection_max_instances=8, compute_dtype="float64",
-                 param_dtype="float64")
+SMALL = dict(image_size=128, backbone="resnet50", glm_input_size=65, pre_nms_limit=400,
+             post_nms_rois_inference=64, compute_dtype="float64", param_dtype="float64")
+
+
+def detecting_weights(cfg):
+    """Seeded weights whose random heads keep their outputs O(1): spread
+    scores, small deltas, foreground-leaning classes."""
     sd = init_params(cfg, seed=0, device="cpu")
-    # keep the random heads' outputs O(1): spread scores, small deltas
     for key, s in (("rpn.conv_class.weight", 1e-3), ("rpn.conv_bbox.weight", 1e-4),
                    ("classifier.linear_class.weight", 1e-2),
                    ("classifier.linear_bbox.weight", 1e-3)):
         sd[key] = sd[key] * s
     sd["classifier.linear_class.bias"][1] = 2.0
+    return sd
+
+
+def test_detector_on_card_matches_cpu(cuda_device):
+    """The whole slice in float64 on the card (kernels) and on the CPU
+    (plain versions), same seeded weights: equal boxes and classes."""
+    cfg = Config(detection_max_instances=8, **SMALL)
+    sd = detecting_weights(cfg)
     rng = np.random.RandomState(0)
     images = [rng.randint(0, 255, (128, 128, 3), np.uint8) for _ in range(2)]
 
@@ -285,3 +292,84 @@ def test_detector_on_card_matches_cpu(cuda_device):
     # transcendentals may differ in the last bit
     np.testing.assert_allclose(det_gpu[..., 5], det_cpu[..., 5], rtol=1e-6)
     np.testing.assert_allclose(masks_gpu, masks_cpu, rtol=1e-5, atol=1e-6)
+
+
+def test_mesh_detector_two_replicas_on_one_card(cuda_device):
+    """``Detector(mesh=(card, card))``: two replicas on the one card, a
+    ragged batch of 3 padded to 4 and split in two blocks (one NMS launch
+    each), equal to the ``Detector`` without a mesh on the same images
+    (float64: boxes and classes equal, scores and masks to rounding)."""
+    cfg = Config(detection_max_instances=8, **SMALL)
+    sd = detecting_weights(cfg)
+    rng = np.random.RandomState(1)
+    images = [rng.randint(0, 255, (128, 128, 3), np.uint8) for _ in range(3)]
+    single = Detector(cfg, sd, device=cuda_device)
+    mesh = Detector(cfg, sd, mesh=(cuda_device, cuda_device))
+    assert len(mesh._replicas) == 2 and mesh._replicas[0] is not mesh._replicas[1]
+    det, masks = single._fetch(single.dispatch(images))
+    before = NMS_KERNEL.launches
+    pending = mesh.dispatch(images)
+    det_m, masks_m = mesh._fetch(pending)
+    assert NMS_KERNEL.launches == before + 2 and det_m.shape[0] == 4
+    assert (det[..., 4] > 0).sum() > 0
+    np.testing.assert_array_equal(det_m[:3, ..., :5], det[..., :5])
+    np.testing.assert_allclose(det_m[:3, ..., 5], det[..., 5], rtol=1e-6)
+    np.testing.assert_allclose(masks_m[:3], masks, rtol=1e-5, atol=1e-6)
+    assert len(mesh.collect(pending)) == 3
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_nccl_world_one_step_equals_plain_step(cuda_device):
+    """In a one-process NCCL group the optimizer averages the gradients
+    (a sum of one, a division by 1) and the logged losses: the step equals
+    the plain one bit for bit (128², float64, deterministic algorithms)."""
+    import torch.distributed as dist
+
+    from sln_amodal_tpu_torch.models.sln import SLNAmodal
+    from sln_amodal_tpu_torch.parallel import multihost
+    from sln_amodal_tpu_torch.profile_train import make_batch
+    from sln_amodal_tpu_torch.train.optim import StagedSGD
+    from sln_amodal_tpu_torch.train.trainer import step_uniforms, to_device, train_step
+    from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
+
+    cfg = Config(**dict(SMALL, post_nms_rois_training=64, train_rois_per_image=16,
+                        max_gt_instances=8, batch_size=2))
+    sd = rpn_biased_variables(init_params(cfg, seed=0, device="cpu"))
+    batch = to_device(make_batch(cfg, 2, 0), cuda_device)
+    uniforms = step_uniforms(torch.Generator().manual_seed(0), 2, cfg.post_nms_rois_training)
+
+    def step():
+        model = SLNAmodal(cfg, device=cuda_device)
+        model.load_state_dict(sd)
+        before = (NMS_KERNEL.launches, ROI_ALIGN_BACKWARD_KERNEL.launches)
+        losses = train_step(model, StagedSGD(model, "all", 1e-3), batch, uniforms=uniforms)
+        assert (NMS_KERNEL.launches, ROI_ALIGN_BACKWARD_KERNEL.launches) == \
+            (before[0] + 1, before[1] + 2)
+        return ({k: float(v) for k, v in losses.items()},
+                {k: v.detach().cpu() for k, v in model.named_parameters()})
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        plain = step()
+        multihost.init_group(f"localhost:{free_port()}", 1, 0, "nccl")
+        try:
+            assert dist.get_backend() == "nccl" and multihost.process_count() == 1
+            grouped = step()
+        finally:
+            multihost.shutdown()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    assert grouped[0] == plain[0]
+    moved = 0
+    for k, v in plain[1].items():
+        assert torch.equal(grouped[1][k], v), k
+        moved += int(not torch.equal(v, sd[k]))
+    assert moved > 0

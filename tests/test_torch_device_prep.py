@@ -464,12 +464,19 @@ def test_device_prep_loader_rejects_legacy_dataset(synth, tmp_path, monkeypatch)
 
 def test_overflow_skips_counted_separately(synth, capsys):
     """Overflow skips are counted apart from corrupt-data errors, with a
-    warning once the rate is systematic. The multi-process loader, where
-    the JAX module raises them, is ROADMAP item 13: the port refuses it."""
+    warning once the rate is systematic. The multi-process loader raises
+    them for a sample over the RLE budget, as the JAX module does; one
+    process takes the dense route instead."""
     ds, _ = synth
     cfg = prep_config(batch_size=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        DevicePrepLoader(ds, cfg, device="cpu", process_index=0, process_count=2)
+    image_id = int(ds.image_ids[0])
+    multi = DevicePrepLoader(ds, cfg, device="cpu", process_index=1, process_count=2)
+    one = cpu_loader(ds, cfg, seed=0)
+    for loader in (multi, one):
+        loader._rle_budget = 1
+    with pytest.raises(SampleOverflowError, match="skipped on multi-process runs"):
+        multi._make_one_sample(image_id, None)
+    assert int(one._make_one_sample(image_id, None)["n_runs"]) > 1
 
     loader = cpu_loader(ds, cfg, seed=0, augment=False)
     calls = [0]

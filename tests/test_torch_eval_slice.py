@@ -210,9 +210,22 @@ def test_test_images_cli_writes_pickled_results(weights, reduced_cli, tmp_path, 
             np.testing.assert_array_equal(got[k], ref[k])
 
 
+def test_evaluate_data_parallel_equals_one_device(weights, reduced_cli, tmp_path, monkeypatch):
+    """``evaluate --data_parallel`` (on the CPU a mesh of the CPU alone)
+    gives the result dicts and the 12 sweeps of the run without it."""
+    root = make_synthetic_dataset(str(tmp_path / "data"), n_images=3, size=64, subset="val")
+    reduced_cli(monkeypatch)
+    common = ["evaluate", "--dataset", root, "--model", weights[2], "--eval_batch", "2",
+              "--device", "cpu"]
+    plain = port_train.main(common)
+    sharded = port_train.main(common + ["--data_parallel"])
+    assert len(plain.results) > 0 and sharded.results == plain.results
+    assert list(sharded.stats) == list(plain.stats)
+    for key in plain.stats:
+        assert np.array_equal(sharded.stats[key], plain.stats[key]), key
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["evaluate", "--data_parallel"], "item 13"),
-    (["evaluate", "--coordinator", "host:1234"], "item 13"),
     (["evaluate", "--trace_dir", "/tmp/tb"], "item 14"),
 ])
 def test_later_slices_exit_with_their_roadmap_item(argv, item, tmp_path):
@@ -293,7 +306,7 @@ leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "jaxlib", "flax", "sln_amodal_tpu")
                 and sys.modules[n] is not None)
 assert not leaked, leaked
-for name in ("data.device_prep", "cli.convert_dataset"):
+for name in ("data.device_prep", "cli.convert_dataset", "parallel.mesh", "parallel.multihost"):
     assert "sln_amodal_tpu_torch." + name in names, name
 print(len(names))
 """

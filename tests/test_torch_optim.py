@@ -7,7 +7,9 @@
 - One update (two steps, so the momentum trace is used) of the JAX
   package's ``make_optimizer`` chain (zero the frozen grads, clip by global norm 5,
   + wd * p, momentum 0.9, -lr) against the port's ``StagedSGD``, with the
-  clip triggered and not, in float64: within 1e-12.
+  clip triggered and not, in float64: within 1e-12; the same chain in
+  ``optax.MultiSteps`` against ``accumulate_steps=2``.
+- A ``.state`` of the layout before accumulation still loads.
 """
 
 import numpy as np
@@ -115,50 +117,116 @@ def flat(tree):
             for port, (a, b) in JAX_NAMES.items() for part in ("weight", "bias")}
 
 
-@pytest.mark.parametrize("stage", ["heads", "4+", "all"])
-@pytest.mark.parametrize("grad_scale", [0.05, 40.0])     # clip not triggered / triggered
-def test_update_equals_optax_chain(stage, grad_scale):
+def optax_and_port(stage, grads, lr, accumulate_steps=1):
+    """``grads`` (one {name: array} per step) through the JAX package's
+    ``make_optimizer`` (in ``optax.MultiSteps`` when ``accumulate_steps >
+    1``) and the port's ``StagedSGD`` on a ``Tiny`` model: (initial, JAX
+    and port parameters after each step as {name: array}, the global norms
+    of the gradients each optimizer clipped: JAX's of what reached the
+    inner chain, the port's as ``step`` returns them)."""
     torch.manual_seed(0)
     model = Tiny().double()
-    rng = np.random.RandomState(1)
     init = {k: v.detach().numpy().copy() for k, v in model.named_parameters()}
-    grads = [{k: rng.randn(*v.shape) * grad_scale for k, v in init.items()} for _ in range(2)]
-    lr = 0.01
 
     def jax_stage(path):          # the stage predicate over the JAX names
         return jax_optim.STAGES[stage](path)
 
     with jax.enable_x64(True):
         params = jax_tree({k: jnp.asarray(v) for k, v in init.items()})
+        t_mask = jax_optim.trainable_mask(params, jax_stage)
         tx = jax_optim.make_optimizer(params, jax_stage, lr)
+        if accumulate_steps > 1:
+            tx = optax.MultiSteps(tx, every_k_schedule=accumulate_steps)
         state = tx.init(params)
-        norms = []
+        ref, norms, acc = [], [], []
         for g in grads:
             g_tree = jax_tree({k: jnp.asarray(v) for k, v in g.items()})
-            t_mask = jax_optim.trainable_mask(params, jax_stage)
-            live = [np.asarray(x) for x, m in zip(jax.tree_util.tree_leaves(g_tree),
-                                                 jax.tree_util.tree_leaves(t_mask)) if m]
-            norms.append(float(np.sqrt(sum((x * x).sum() for x in live))))
+            acc.append([np.asarray(x) for x, m in zip(jax.tree_util.tree_leaves(g_tree),
+                                                     jax.tree_util.tree_leaves(t_mask)) if m])
+            if len(acc) == accumulate_steps:
+                mean = [sum(xs) / len(acc) for xs in zip(*acc)]
+                norms.append(float(np.sqrt(sum((x * x).sum() for x in mean))))
+                acc = []
             updates, state = tx.update(g_tree, state, params)
             params = optax.apply_updates(params, updates)
-        ref = flat(params)
+            ref.append(flat(params))
 
-    opt = optim.StagedSGD(model, stage, lr)
+    opt = optim.StagedSGD(model, stage, lr, accumulate_steps=accumulate_steps)
+    got, port_norms = [], []
     for g in grads:
         opt.zero_grad()
         for k, p in model.named_parameters():
             if p.requires_grad:
                 p.grad = torch.from_numpy(g[k])
-        opt.step()
+        norm = opt.step()
+        if norm is not None:
+            port_norms.append(float(norm))
+        got.append({k: v.detach().numpy().copy() for k, v in model.named_parameters()})
+    return model, init, ref, got, norms, port_norms
+
+
+def random_grads(steps, grad_scale):
+    torch.manual_seed(0)
+    shapes = {k: v.shape for k, v in Tiny().named_parameters()}
+    rng = np.random.RandomState(1)
+    return [{k: rng.randn(*s) * grad_scale for k, s in shapes.items()} for _ in range(steps)]
+
+
+@pytest.mark.parametrize("stage", ["heads", "4+", "all"])
+@pytest.mark.parametrize("grad_scale", [0.05, 40.0])     # clip not triggered / triggered
+def test_update_equals_optax_chain(stage, grad_scale):
+    model, init, ref, got, norms, _ = optax_and_port(stage, random_grads(2, grad_scale), 0.01)
     if grad_scale > 1:
         assert min(norms) > 5.0
     else:
         assert max(norms) < 5.0
-    got = {k: v.detach().numpy() for k, v in model.named_parameters()}
     mask = optim.trainable_mask(model, stage)
-    for k in ref:
-        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-12, err_msg=k)
-        assert np.array_equal(got[k], init[k]) == (not mask[k]), k
+    for k in ref[-1]:
+        np.testing.assert_allclose(got[-1][k], ref[-1][k], rtol=0, atol=1e-12, err_msg=k)
+        assert np.array_equal(got[-1][k], init[k]) == (not mask[k]), k
+
+
+@pytest.mark.parametrize("grad_scale", [0.05, 40.0])     # clip not triggered / triggered
+def test_accumulation_equals_optax_multisteps(grad_scale):
+    """``accumulate_steps=2`` against ``optax.MultiSteps(make_optimizer(...),
+    2)`` over 4 micro-steps (two updates, so the momentum is used): every
+    parameter bit-unchanged on the micro-steps that do not update, within
+    1e-12 on those that do, and the clipped norm that of the mean gradient.
+    Where the clip does not bind, a summed accumulator would double the
+    update and fail."""
+    model, init, ref, got, norms, port_norms = optax_and_port(
+        "all", random_grads(4, grad_scale), 0.01, accumulate_steps=2)
+    if grad_scale > 1:
+        assert min(norms) > 5.0
+    else:
+        assert max(norms) < 5.0
+    np.testing.assert_allclose(port_norms, norms, rtol=1e-12)
+    previous = init
+    for i, (r, g) in enumerate(zip(ref, got)):
+        for k in r:
+            np.testing.assert_allclose(g[k], r[k], rtol=0, atol=1e-12, err_msg=(i, k))
+        moved = any(not np.array_equal(g[k], previous[k]) for k in g)
+        assert moved == (i % 2 == 1), i
+        previous = g
+
+
+def test_state_without_accumulator_loads():
+    """A ``.state`` written before accumulation holds the bare SGD state:
+    it restores the momentum, at micro-step 0 with an empty accumulator."""
+    torch.manual_seed(0)
+    model = Tiny().double()
+    opt = optim.StagedSGD(model, "all", 0.01)
+    for p in opt.params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    bare = opt.sgd.state_dict()
+    for k in (1, 2):
+        again = optim.StagedSGD(model, "all", 0.01, accumulate_steps=k)
+        again.load_state_dict(bare)
+        assert again.mini_step == 0
+        assert all(torch.equal(again.sgd.state[p]["momentum_buffer"],
+                               opt.sgd.state[p]["momentum_buffer"]) for p in opt.params)
+        assert k == 1 or all(float(a.abs().max()) == 0.0 for a in again.accumulated)
 
 
 def test_clip_has_no_epsilon():

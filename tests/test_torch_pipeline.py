@@ -4,8 +4,8 @@
 copy. For the same numpy seed, ``make_training_sample`` gives bit-equal
 samples (image, RPN match and deltas, padded GT ids, boxes and layer masks,
 with the flip and the box jitter drawn), and ``TrainLoader(workers=1)``
-equal batches. Also: the image helpers the loader uses, and the
-single-process ``partition_ids``.
+equal batches. Also: the image helpers the loader uses, and each process's
+slice of the dataset.
 """
 
 import numpy as np
@@ -125,9 +125,14 @@ def test_extract_bboxes_and_image_helpers_equal_jax():
                                   jax_image.imresize_float(f, (20, 15)))
 
 
-def test_partition_ids_is_single_process():
-    ids = np.arange(7)
-    np.testing.assert_array_equal(pipeline.partition_ids(ids), ids)
-    np.testing.assert_array_equal(pipeline.partition_ids(ids, 0, 1), ids)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pipeline.partition_ids(ids, 1, 2)
+def test_train_loader_partitions_ids_as_jax(datasets):
+    """Each process streams the JAX loader's slice of the dataset: ceil(5/2)
+    ids, the tail wrapped to the front; one process keeps every id."""
+    jax_ds, ds = datasets
+    for index, count in ((0, 2), (1, 2), (0, 1)):
+        ref = jax_pipeline.TrainLoader(jax_ds, JaxConfig(**CFG), workers=1,
+                                       process_index=index, process_count=count)
+        got = pipeline.TrainLoader(ds, Config(**CFG), workers=1,
+                                   process_index=index, process_count=count)
+        np.testing.assert_array_equal(got.local_ids, ref.local_ids)
+        assert len(got.local_ids) == (3 if count == 2 else 5)

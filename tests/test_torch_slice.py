@@ -34,6 +34,21 @@ CFG = dict(image_size=64, backbone="resnet50", glm_input_size=33,
            compute_dtype="float64", param_dtype="float64")
 
 
+def detecting_variables():
+    """Seeded JAX variables of ``CFG``'s model, the random heads scaled so
+    the model emits real detections: RPN scores spread over (0, 1), small
+    box deltas, foreground-leaning classifier scores that are well apart."""
+    shapes = jax.eval_shape(lambda k: jax_init(JaxConfig(**CFG), k), jax.random.PRNGKey(0))
+    variables = random_variables(shapes, seed=1)
+    p = variables["params"]
+    for head, key, scale in (("rpn", "conv_class", 0.01), ("rpn", "conv_bbox", 0.001),
+                             ("classifier", "linear_bbox", 0.01),
+                             ("classifier", "linear_class", 0.02)):
+        p[head][key]["kernel"] = p[head][key]["kernel"] * scale
+    p["classifier"]["linear_class"]["bias"] += np.array([0.0, 0.5])
+    return variables
+
+
 @pytest.fixture(scope="module")
 def detections(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("synthetic"))
@@ -44,18 +59,7 @@ def detections(tmp_path_factory):
     images[1] = np.asarray(Image.fromarray(images[1]).resize((80, 56)))
 
     jcfg = JaxConfig(**CFG)
-    shapes = jax.eval_shape(lambda k: jax_init(jcfg, k), jax.random.PRNGKey(0))
-    variables = random_variables(shapes, seed=1)
-    # scale the random heads so the model emits real detections: RPN
-    # scores spread over (0, 1), small box deltas, foreground-leaning
-    # classifier scores that are well apart
-    p = variables["params"]
-    for head, key, scale in (("rpn", "conv_class", 0.01), ("rpn", "conv_bbox", 0.001),
-                             ("classifier", "linear_bbox", 0.01),
-                             ("classifier", "linear_class", 0.02)):
-        p[head][key]["kernel"] = p[head][key]["kernel"] * scale
-    p["classifier"]["linear_class"]["bias"] += np.array([0.0, 0.5])
-
+    variables = detecting_variables()
     with jax.enable_x64(True):
         ref_det = JaxDetector(jcfg, variables)
         pending = ref_det.dispatch(images)

@@ -280,11 +280,45 @@ def test_kill_and_resume_equals_an_uninterrupted_run(shared, logs):
     assert not torch.equal(a["mask.conv5.weight"], sd32["mask.conv5.weight"])
 
 
-def test_accumulation_is_refused_naming_its_item(shared):
-    trainer = Trainer(Config(**SMALL), {k: v.to(torch.float32) for k, v in shared[1].items()},
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trainer.train_stage(OneBatch({}), "heads", 1e-3, epochs=1, accumulate_steps=2)
+def test_accumulation_cut_between_micro_steps_resumes_equal(shared, logs):
+    """Two micro-batches per update, one epoch each: the first micro-step
+    leaves the parameters bit-unchanged; a run cut after it (checkpoint and
+    .state with the accumulator written) and resumed equals an
+    uninterrupted run, whose second micro-step moved the parameters."""
+    sd32 = {k: v.to(torch.float32) for k, v in shared[1].items()}
+    loader = OneBatch(make_batch(Config(**SMALL), 2, 1))
+    cfg = Config(**SMALL)
+    seen = {}
+
+    def run(kill_after=None, resume=None):
+        trainer = Trainer(cfg, resume[0] if resume else sd32, device="cpu")
+        trainer.epoch = 1 if resume else 0
+
+        def end(epoch):
+            seen[epoch] = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+            if epoch == kill_after:
+                ckpt.save(trainer.model.state_dict(), logs, "acc", epoch)
+                ckpt.save_train_state(trainer.model, trainer.optimizer, trainer.step, logs,
+                                      "acc", epoch)
+                raise KeyboardInterrupt
+
+        trainer.train_stage(loader, "heads", 1e-3, epochs=2, steps_per_epoch=1, seed=5,
+                            on_epoch_end=end, accumulate_steps=2,
+                            resume_state_path=resume and resume[1],
+                            start_epoch=1 if resume else 0)
+        return trainer
+
+    full = run()
+    assert all(torch.equal(seen[1][k], sd32[k]) for k in sd32)
+    assert full.optimizer.mini_step == 0 and full.step == 2
+    with pytest.raises(KeyboardInterrupt):
+        run(kill_after=1)
+    path = ckpt.checkpoint_path(logs, "acc", 1)
+    resumed = run(resume=(ckpt.load_weights(path, sd32), path + ".state"))
+    assert resumed.step == full.step
+    a, b = full.model.state_dict(), resumed.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["mask.conv5.weight"], sd32["mask.conv5.weight"])
 
 
 def test_train_defaults_to_the_card_in_float32():
@@ -305,7 +339,7 @@ for name in ("jax", "jaxlib", "flax", "optax", "sln_amodal_tpu"):
     sys.modules[name] = None
 for name in ("detect.targets", "train.losses", "train.optim", "train.trainer",
              "train.checkpoint", "data.pipeline", "utils.synthetic", "cli.train",
-             "ops.roi_align_cuda"):
+             "ops.roi_align_cuda", "parallel.mesh", "parallel.multihost"):
     importlib.import_module("sln_amodal_tpu_torch." + name)
 print("ok")
 """
