@@ -9,7 +9,8 @@ Phases (each prints one JSON line):
    matmuls, so float32 means float32.
 2. build — the CUDA kernels built from ``sln_amodal_tpu_torch/csrc`` with
    nvcc (one process per source, all started together).
-3. kernels — each kernel held against its plain PyTorch version on the card
+3. kernels — each kernel, called through its wrapper and custom op
+   (``ops/library.py``), held against its plain PyTorch version on the card
    with seeded inputs at the shapes of both main paths (batch 2 for
    ``detect``, batch 8 for ``evaluate``), bit for bit (NMS: keeps equal;
    RoIAlign: ``torch.equal``). ``ms`` is the median time of one wrapper
@@ -99,6 +100,27 @@ Phases (each prints one JSON line):
     process 0 alone writes the checkpoint, the parameters end equal, each
     loader streams its half. Launches counted over (a) and (c)
     (``data_parallel``) and over (d)'s mesh runs (``data_parallel_serving``).
+13. serving — the serving artifact (``serve/export.py``) at full width: (a)
+    ``export_detector`` of phase 4's detector at batch 2 (seconds, bytes of
+    ``model.pt2``, peak device memory); (b) loaded in ``python3 chip_smoke.py
+    serving_worker DIR IO``, a process that never imports
+    ``sln_amodal_tpu_torch.models``: its ``detect`` of phase 4's two images
+    equals ``Detector.detect`` bit for bit (rois, class ids, scores, masks),
+    a one-image request (padded to 2) equals the ``Detector``'s row of that
+    image, three images raise; (c) the serving ``detect``'s device ms (CUDA
+    events) and wall ms beside ``Detector.detect``'s, median of 5; (d) its
+    launches per ``detect`` (NMS 1, RoIAlign 2, backward 0: ``serving``);
+    (e) at 128²: ``cli.export_model --model random --batch 1 --full`` writes
+    an artifact that loads, whose ``last_global_label`` and detections equal
+    ``Detector(detect_only=False)``'s on the same seeded weights; a mesh
+    artifact over (card, card) at batch 4 (phase 5's reduced model, one GLM
+    scale) on 3 images equals the mesh ``Detector`` bit for bit and the
+    plain one as in phase 12 (d); (f) ``cli.train evaluate
+    --trace_dir`` on 8 of phase 6's images writes a trace that names the
+    NMS and RoIAlign kernels, with the results of the run without it; (g)
+    the custom ops' wrapper ms and host µs from phase 3 beside PR 7's, and
+    each op's host µs beside its launch function called directly (the
+    dispatcher's cost).
 
 Then, on lines of their own: the kernels' JSON summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last. Any failure raises
@@ -267,7 +289,8 @@ def check_roi_align(dev, b):
     feats = [torch.randn((b, s, s, c), generator=gen).to(dev) for s in (256, 128, 64, 32)]
     shapes = [tuple(f.shape[1:]) for f in feats]
     rng = np.random.RandomState(2)
-    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, host_us=0.0,
+                 max_abs_err=0.0)
     per_shape = []
     for pool, n in ((7, 1000), (16, 100)):
         boxes = roi_boxes(rng, b, n).to(dev)
@@ -309,7 +332,7 @@ def check_roi_align(dev, b):
                      bound_ms=bound_ms, bound_by=bound_by, touched_rows=touched)
         emit({"phase": "kernel", "name": "roi_align", "batch": b, **shape})
         per_shape.append(shape)
-        for k in ("ms", "device_ms", "plain_ms", "bound_ms"):
+        for k in ("ms", "device_ms", "plain_ms", "bound_ms", "host_us"):
             total[k] += shape[k]
         total["max_abs_err"] = max(total["max_abs_err"], err)
     total["bound_by"] = "bytes" if all(s["bound_by"] == "bytes" for s in per_shape) else "operations"
@@ -380,7 +403,8 @@ def check_roi_align_backward(dev, b):
         emit({"phase": "kernel", "name": "roi_align_backward", "batch": b, **shape})
         per_shape.append(shape)
     clustered = [s for s in per_shape if s["layout"] == "clustered"]
-    total = {k: sum(s[k] for s in clustered) for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    total = {k: sum(s[k] for s in clustered)
+             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "host_us")}
     total.update(max_abs_err=max(s["max_abs_err"] for s in per_shape),
                  max_rel_err=max(s["max_rel_err"] for s in per_shape),
                  bound_by="bytes" if all(s["bound_by"] == "bytes" for s in clustered)
@@ -443,7 +467,8 @@ def main_path(dev):
                device_ms_per_detect=statistics.median(device_ms), setup_s=setup_s,
                peak_mem_bytes=int(peak), launches=launches, detections=n_det)
     emit({"phase": "main_path", **out})
-    return out
+    # phase 13 serves this detector's weights and holds its results
+    return dict(out, detector=det, images=images, results=results)
 
 
 def reference_check(dev):
@@ -1839,6 +1864,304 @@ def data_parallel(dev, tmp, tr, ev):
     return out
 
 
+def detect_times(detector, images, repeats=5) -> dict:
+    """Medians over ``repeats`` calls, after one warm-up call: CUDA-event
+    ms of ``dispatch`` on the device (its span from the first launch to the
+    last kernel's end), wall ms of ``detect`` (dispatch, then ``collect``'s
+    fetch and host unmold), and the host ms of each of the two."""
+    detector.detect(images)
+    torch.cuda.synchronize()
+    rec = {"device_ms": [], "wall_ms": [], "dispatch_host_ms": [], "collect_host_ms": []}
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        pending = detector.dispatch(images)
+        end.record()
+        t_collect = time.perf_counter()
+        detector.collect(pending)
+        done = time.perf_counter()
+        end.synchronize()
+        for key, value in (("device_ms", start.elapsed_time(end)),
+                           ("wall_ms", (done - t) * 1e3),
+                           ("dispatch_host_ms", (t_collect - t) * 1e3),
+                           ("collect_host_ms", (done - t_collect) * 1e3)):
+            rec[key].append(value)
+    return {k: statistics.median(v) for k, v in rec.items()}
+
+
+def same_results(got, want) -> bool:
+    """``detect`` results equal bit for bit: rois, class ids, scores, masks."""
+    return len(got) == len(want) and all(
+        np.array_equal(g[k], w[k]) for g, w in zip(got, want)
+        for k in ("rois", "class_ids", "scores", "masks"))
+
+
+def serving_worker(artifact: str, io_dir: str) -> int:
+    """Phase 13 (b)-(d), in a process of its own that never imports the
+    model code: ``ServingDetector.load`` of the full-width artifact, its
+    ``detect`` against phase 4's ``Detector.detect`` (bit for bit), a
+    one-image request (padded to 2) against the ``Detector``'s row of a
+    batch of that image twice, a three-image request refused, the launches
+    of one serving ``detect`` and its device and wall ms."""
+    import pickle
+
+    from sln_amodal_tpu_torch.serve import ServingDetector
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(io_dir, "reference.pkl"), "rb") as f:
+        ref = pickle.load(f)
+    t = time.perf_counter()
+    served = ServingDetector.load(artifact)
+    load_s = time.perf_counter() - t
+    images = ref["images"]
+    served.detect(images)                   # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    kernels = train_kernels()
+    for k in kernels:
+        k.launches = 0
+    got = served.detect(images)
+    launches = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
+    if launches != {"nms": 1, "roi_align": 2, "roi_align_backward": 0}:
+        raise AssertionError(f"serving: launches per detect {launches}")
+    if not same_results(got, ref["results"]):
+        raise AssertionError("serving: the artifact's detect differs from Detector.detect")
+    if not same_results(served.detect(images[:1]), ref["one"]):
+        raise AssertionError("serving: a one-image request differs")
+    try:
+        served.detect(images + images[:1])
+    except ValueError as e:
+        if "artifact batch" not in str(e):
+            raise
+    else:
+        raise AssertionError("serving: a three-image request was not refused")
+    times = detect_times(served, images)
+    leaked = sorted(n for n in sys.modules if n.startswith("sln_amodal_tpu_torch.models"))
+    if leaked:
+        raise AssertionError(f"serving: the loading process imported {leaked}")
+    out = dict(load_s=load_s, launches=launches, results_bit_equal=True,
+               one_image_bit_equal=True, three_images_refused=True, **times,
+               models_imported=False,
+               detections=[len(r["scores"]) for r in got])
+    with open(os.path.join(io_dir, "worker.json"), "w") as f:
+        json.dump(out, f)
+    emit({"phase": "serving_worker", **out})
+    return 0
+
+
+def dispatcher_hop_us(dev):
+    """Host µs per call through each custom op and straight to its launch
+    function (no dispatcher), in turns, at the evaluate path's shapes
+    (batch 8: NMS 6000 -> 1000, RoIAlign pool 7 over 1000 boxes) and the
+    train step's (batch 2: the backward at pool 7 over 100 boxes)."""
+    from sln_amodal_tpu_torch.ops.nms_cuda import launch_nms, nms_sorted_batched
+    from sln_amodal_tpu_torch.ops.roi_align_cuda import (launch_roi_align,
+                                                         launch_roi_align_backward,
+                                                         pyramid_roi_align,
+                                                         pyramid_roi_align_backward)
+
+    rng = np.random.RandomState(0)
+    boxes = torch.from_numpy(np.stack([cluster_boxes(rng, 6000) for _ in range(8)])).to(dev)
+    valid = torch.ones((8, 6000), dtype=torch.bool, device=dev)
+    feats = [torch.randn((8, s, s, 256), device=dev) for s in (256, 128, 64, 32)]
+    rois = roi_boxes(rng, 8, 1000).to(dev)
+    grad = torch.randn((2, 100, 7, 7, 256), device=dev)
+    rois2 = clustered_boxes(rng, 2, 100).to(dev)
+    shapes = [(s, s, 256) for s in (256, 128, 64, 32)]
+    sizes = [s for s, _, _ in shapes]
+    calls = {
+        "nms": (lambda: nms_sorted_batched(boxes, valid, 1000, 0.7),
+                lambda: launch_nms(boxes, valid, 1000, 0.7, False, -1)),
+        "roi_align": (lambda: pyramid_roi_align(feats, rois, (7, 7), (1024, 1024)),
+                      lambda: launch_roi_align(feats, rois, [7, 7], [1024, 1024], 0.0)),
+        "roi_align_backward": (
+            lambda: pyramid_roi_align_backward(grad, rois2, shapes, (7, 7), (1024, 1024),
+                                               torch.float32),
+            lambda: launch_roi_align_backward(grad, rois2, sizes, sizes, [7, 7],
+                                              [1024, 1024], torch.float32)),
+    }
+    out = {}
+    for name, (op, direct) in calls.items():
+        runs = {"op": [], "direct": []}
+        for _ in range(2):
+            for key, fn in (("op", op), ("direct", direct), ("direct", direct), ("op", op)):
+                runs[key].append(host_us(fn, 30))
+        out[name] = {k: statistics.median(v) for k, v in runs.items()}
+        out[name]["hop_us"] = out[name]["op"] - out[name]["direct"]
+    del feats, boxes, grad
+    torch.cuda.empty_cache()
+    return out
+
+
+def trace_kernel_names(trace_dir) -> list:
+    """The device kernels' names in the ``torch.profiler`` trace(s) under
+    ``trace_dir``."""
+    names = set()
+    for root, _, files in os.walk(trace_dir):
+        for name in files:
+            if name.endswith(".json"):
+                with open(os.path.join(root, name)) as f:
+                    events = json.load(f).get("traceEvents", [])
+                names.update(e.get("name", "") for e in events if e.get("cat") == "kernel")
+    return sorted(names)
+
+
+def serving(dev, tmp, path, ev, kernel_checks):
+    """Phase 13: the serving artifact at full width and its tooling.
+
+    (a) ``export_detector`` of phase 4's detector at batch 2, detect-only:
+    seconds, bytes of ``model.pt2``, peak device memory; (b)-(d) loaded and
+    run in ``python3 chip_smoke.py serving_worker DIR IO`` (a process that
+    never imports the model code): bit-equal to phase 4's ``Detector.detect``,
+    padding, refusal, NMS 1 / RoIAlign 2 / backward 0 launches per detect,
+    device and wall ms beside ``Detector.detect``'s; (e) at 128²:
+    ``cli.export_model --full`` (its ``last_global_label`` and detections
+    against ``Detector(detect_only=False)``'s) and a mesh artifact over
+    (card, card); (f) ``cli.train evaluate --trace_dir`` over 8 of
+    phase 6's images: the trace names the kernels, the results equal a run
+    without it; (g) the ops' host µs and wrapper ms from phase 3 beside PR
+    7's, and each op's host µs against its launch function called
+    directly."""
+    import pickle
+    import shutil
+
+    from sln_amodal_tpu_torch.cli import export_model
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.config import Config, inference_config
+    from sln_amodal_tpu_torch.convert import init_params
+    from sln_amodal_tpu_torch.infer import Detector
+    from sln_amodal_tpu_torch.profile_infer import make_detector
+    from sln_amodal_tpu_torch.serve import ServingDetector, export_detector
+
+    t_phase = time.perf_counter()
+    det, images = path["detector"], path["images"]
+    out = {}
+
+    # (a) export at full width
+    art = os.path.join(tmp, "serving")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    export_detector(det.config, det.model.state_dict(), art, batch=2, detect_only=True,
+                    device=dev)
+    out["a"] = dict(batch=2, image=det.config.image_size, export_s=time.perf_counter() - t,
+                    model_pt2_bytes=os.path.getsize(os.path.join(art, "model.pt2")),
+                    peak_mem_bytes=int(torch.cuda.max_memory_allocated(dev)),
+                    peak_over_resident_bytes=int(torch.cuda.max_memory_allocated(dev) - before))
+    emit({"phase": "serving", "part": "a", **out["a"]})
+
+    # (b)-(d) in a process of its own, against phase 4's Detector
+    io_dir = os.path.join(tmp, "serving_io")
+    os.makedirs(io_dir, exist_ok=True)
+    with open(os.path.join(io_dir, "reference.pkl"), "wb") as f:
+        pickle.dump({"images": images, "results": path["results"],
+                     "one": det.detect([images[0], images[0]])[:1]}, f)
+    detector_ms = detect_times(det, images)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "serving_worker", art,
+                           io_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"serving: the worker failed:\n{proc.stdout[-4000:]}")
+    print("\n".join(ln for ln in proc.stdout.splitlines() if '"serving_worker"' in ln))
+    with open(os.path.join(io_dir, "worker.json")) as f:
+        worker = json.load(f)
+    out["b"] = dict(worker, worker_s=time.perf_counter() - t,
+                    **{f"detector_{k}": v for k, v in detector_ms.items()})
+    emit({"phase": "serving", "part": "b", **out["b"]})
+    shutil.rmtree(art)
+    shutil.rmtree(io_dir)
+
+    # (e) 128² on the card: the CLI's full-contract artifact, a mesh artifact
+    t = time.perf_counter()
+    rng = np.random.RandomState(3)
+    imgs = [rng.randint(0, 256, (128, 128, 3), np.uint8) for _ in range(3)]
+    cli_dir = os.path.join(tmp, "serving_cli")
+    export_model.main(["--model", "random", "--image_size", "128", "--batch", "1", "--full",
+                       "--out", cli_dir, "--device", str(dev)])
+    served = ServingDetector.load(cli_dir)
+    full_cfg = inference_config(image_size=128, compute_dtype="float32", param_dtype="float32")
+    direct = Detector(full_cfg, init_params(full_cfg, seed=0, device=dev), detect_only=False,
+                      device=dev)
+    got, want = served.detect(imgs[:1]), direct.detect(imgs[:1])
+    if ((served.batch, served.config, served.detect_only) != (1, full_cfg, False)
+            or served.last_global_label is None
+            or not np.array_equal(served.last_global_label, direct.last_global_label)
+            or not same_results(got, want)):
+        raise AssertionError("serving (e): the CLI's full-contract artifact differs from "
+                             "Detector(detect_only=False)'s")
+    label_shape = list(direct.last_global_label.shape)
+    shutil.rmtree(cli_dir)
+    del served, direct
+    # the mesh artifact on phase 5's reduced model with one GLM scale (its
+    # export and load time grow with the graph's nodes), weighted to detect
+    # by phase 6's recipe (a zero classifier kernel under the +8 bias)
+    small = Config(image_size=128, backbone="resnet50", glm_input_size=65, glm_scales=(),
+                   pre_nms_limit=400, post_nms_rois_inference=64, detection_max_instances=32,
+                   compute_dtype="float32", param_dtype="float32")
+    sd = make_detector(small, seed=0, device=dev).model.state_dict()
+    sd["classifier.linear_class.weight"].zero_()
+    mesh_dir = os.path.join(tmp, "serving_mesh")
+    export_detector(small, sd, mesh_dir, batch=4, mesh=(dev, dev))
+    served = ServingDetector.load(mesh_dir, mesh=(dev, dev))
+    got = served.detect(imgs)
+    mesh_want = Detector(small, sd, mesh=(dev, dev)).detect(imgs)
+    want = Detector(small, sd, device=dev).detect(imgs)
+    score_err = max([0.0] + [float(np.abs(g["scores"] - w["scores"]).max(initial=0.0))
+                             for g, w in zip(got, want)])
+    if (not same_results(got, mesh_want) or score_err > 1e-5 or min(
+            len(r["scores"]) for r in got) == 0 or not all(
+            np.array_equal(g[k], w[k]) for g, w in zip(got, want)
+            for k in ("rois", "class_ids", "masks"))):
+        raise AssertionError(f"serving (e): the mesh artifact differs (scores {score_err})")
+    out["e"] = dict(image=128, cli_full_contract_loads=True, global_label_equal=True,
+                    global_label_shape=label_shape, mesh_bit_equal_to_mesh_detector=True,
+                    mesh_score_max_abs_err=score_err,
+                    mesh_detections=[len(r["scores"]) for r in got],
+                    seconds=time.perf_counter() - t)
+    emit({"phase": "serving", "part": "e", **out["e"]})
+    shutil.rmtree(mesh_dir)
+    del served
+
+    # (f) evaluate --trace_dir
+    trace_dir = os.path.join(tmp, "trace")
+    common = ["evaluate", "--dataset", ev["root"], "--model", ev["model"], "--limit", "8",
+              "--eval_batch", "8", "--device", str(dev)]
+    plain = cli.main(common)
+    traced = cli.main(common + ["--trace_dir", trace_dir])
+    names = trace_kernel_names(trace_dir)
+    found = {k: [n for n in names if k in n] for k in ("nms_mask_kernel", "nms_scan_kernel",
+                                                       "roi_align_kernel")}
+    if not all(found.values()):
+        raise AssertionError(f"serving (f): the trace lacks a kernel: {found}")
+    if traced.results != plain.results or not all(
+            np.array_equal(traced.stats[k], plain.stats[k]) for k in plain.stats):
+        raise AssertionError("serving (f): evaluate --trace_dir differs from evaluate")
+    trace_bytes = sum(os.path.getsize(os.path.join(r, n))
+                      for r, _, files in os.walk(trace_dir) for n in files)
+    out["f"] = dict(images=8, results=len(plain.results), results_equal=True,
+                    kernels_in_trace={k: v[0] for k, v in found.items()},
+                    device_kernel_names=len(names), trace_bytes=trace_bytes,
+                    predict_s=plain.seconds, predict_traced_s=traced.seconds)
+    emit({"phase": "serving", "part": "f", **out["f"]})
+    shutil.rmtree(trace_dir)
+
+    # (g) host work per call after the registration
+    pr7 = {"nms": 0.3163, "roi_align": 0.6333, "roi_align_backward": 1.1724}
+    out["g"] = dict(
+        wrapper={name: {"ms": k["ms"], "host_us": k["host_us"], "pr7_run5_ms": pr7[name]}
+                 for name, k in kernel_checks.items()},
+        op_vs_direct_host_us=dispatcher_hop_us(dev))
+    emit({"phase": "serving", "part": "g", **out["g"]})
+    out["launches"] = out["b"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "serving", "seconds": out["seconds"]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1880,6 +2203,8 @@ def main() -> int:
         prep = device_prep_check(dev, tr)
         trp = train_device_prep(dev, tmp, tr, prep)
         dp = data_parallel(dev, tmp, tr, ev)
+        srv = serving(dev, tmp, path, ev, {"nms": nms, "roi_align": roi,
+                                           "roi_align_backward": backward})
 
     # forward kernels: times at the evaluate path's shapes (batch 8),
     # launches of the evaluate run; the backward: times at the train step's
@@ -1900,7 +2225,8 @@ def main() -> int:
                                  "train": tr["launches"][key],
                                  "train_device_prep": trp["launches"][key],
                                  "data_parallel": dp["launches"][key],
-                                 "data_parallel_serving": dp["serving_launches"][key]},
+                                 "data_parallel_serving": dp["serving_launches"][key],
+                                 "serving": srv["launches"][key]},
             "batch": batch, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "device_ms": k["device_ms"]})
@@ -1914,4 +2240,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["data_parallel_worker"]:
         sys.exit(data_parallel_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["serving_worker"]:
+        sys.exit(serving_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -21,13 +21,15 @@ one process per card, each launched with ``--coordinator host:port
 --num_processes N --process_id i``; each process uses card ``i`` modulo the
 host's cards (unless ``--device cpu``), streams its slice of the dataset
 and trains on ``--batch_size`` images per step, and process 0 writes the
-checkpoints. ``--trace_dir`` exits with an error naming the ROADMAP item
-that ports it.
+checkpoints. ``--trace_dir DIR`` records the whole run with
+``torch.profiler`` (``utils/profiling.py``; the card's kernels too on
+``--device cuda``) and writes a Chrome / TensorBoard trace into DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -49,15 +51,11 @@ from ..parallel.mesh import make_mesh
 from ..train import checkpoint as ckpt
 from ..train.optim import StageSchedule
 from ..train.trainer import Trainer
+from ..utils import profiling
 from ..utils.logging import log, print_network, progress_bar
 
 DEFAULT_COCO_WEIGHTS = "./checkpoints/mask_rcnn_coco.pth"
 DEFAULT_GLM_WEIGHTS = "./checkpoints/deeplabv2.pth"
-
-# what later slices of the port bring, by ROADMAP item
-NOT_PORTED = {
-    "trace_dir": "--trace_dir is ROADMAP item 14 (serving and tooling)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -111,15 +109,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "torch.distributed group, see parallel/multihost.py)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
-    p.add_argument("--trace_dir", default=None, help="not ported yet")
+    p.add_argument("--trace_dir", default=None,
+                   help="record the whole run with torch.profiler (host ops, and the "
+                        "card's kernels on --device cuda) into this directory "
+                        "(Chrome / TensorBoard trace; keep the run small: pair with "
+                        "--limit or --steps_per_epoch)")
     return p
 
 
-def refuse_unported(args) -> None:
-    """Exit non-zero if ``args`` ask for something a later slice ports."""
-    asked = [msg for flag, msg in NOT_PORTED.items() if getattr(args, flag)]
-    if asked:
-        sys.exit("not ported yet: " + "; ".join(asked))
+def refuse_unknown_command(args) -> None:
+    """Exit non-zero on a command the CLI does not know."""
     if args.command not in ("train", "evaluate"):
         sys.exit(f"'{args.command}' is not recognized. Use 'train' or 'evaluate'")
 
@@ -347,7 +346,7 @@ def run_train(args) -> Training:
 def main(argv=None):
     """Runs the command; returns its :class:`Training` or :class:`Evaluation`."""
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    refuse_unknown_command(args)
     distributed = bool(args.num_processes and args.num_processes > 1)
     if distributed:
         # before anything touches a card: one process per card
@@ -360,10 +359,16 @@ def main(argv=None):
     log(f"Command: {args.command}")
     log(f"Dataset: {args.dataset}")
     log(f"Model:   {args.model}")
+    tracing = contextlib.nullcontext()
+    if args.trace_dir:
+        tracing = profiling.trace(args.trace_dir,
+                                  cuda=torch.device(args.device).type == "cuda")
+        log(f"Profiler trace → {args.trace_dir}")
     try:
-        if args.command == "train":
-            return run_train(args)
-        return run_evaluate(args)
+        with tracing:
+            if args.command == "train":
+                return run_train(args)
+            return run_evaluate(args)
     finally:
         if distributed:
             multihost.shutdown()

@@ -16,7 +16,6 @@ import torch
 
 from .config import Config
 from .device import resolve_device
-from .models.sln import SLNAmodal
 from .parallel.mesh import make_mesh, shard_batch
 from .utils import image as image_utils
 
@@ -56,6 +55,10 @@ class Detector:
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  detect_only: bool = True, device="cuda",
                  mesh: Optional[Sequence[torch.device]] = None):
+        # imported here: a ServingDetector (serve/export.py) is a Detector
+        # that runs without the model code
+        from .models.sln import SLNAmodal
+
         self.config = config
         self.mesh = None if mesh is None else make_mesh(mesh)
         devices = [resolve_device(device)] if self.mesh is None else list(self.mesh)

@@ -1,9 +1,12 @@
-"""Batched greedy NMS: the CUDA kernel's wrapper.
+"""Batched greedy NMS: the CUDA kernel's launch and the wrapper the model
+calls.
 
-A CUDA tensor goes to the hand-written kernel ``csrc/nms.cu`` (the port of
+:func:`nms_sorted_batched` calls the custom op
+``sln_amodal::nms_sorted_batched`` (``ops/library.py``): a CUDA tensor goes
+to :func:`launch_nms`, the hand-written kernel ``csrc/nms.cu`` (the port of
 the TPU kernel ``sln_amodal_tpu/ops/nms_pallas.py::_nms_kernel``); a CPU
-tensor goes to the plain version :func:`.nms.nms_sorted_batched_plain`. There
-is no fallback from one to the other.
+tensor goes to the plain version :func:`.nms.nms_sorted_batched_plain`.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -11,7 +14,6 @@ from __future__ import annotations
 import torch
 
 from ..cuda_build import FLOAT, INT, VOIDP, CudaKernel
-from .nms import nms_sorted_batched_plain
 
 NMS_KERNEL = CudaKernel("nms.cu", {
     "nms_sorted_batched": (VOIDP, VOIDP, INT, INT, INT, FLOAT, INT, INT,
@@ -31,10 +33,15 @@ def nms_sorted_batched(
 
     Returns (keep [B, max_outputs] int32, keep_valid [B, max_outputs] bool),
     the contract of the JAX package's ``nms_sorted_pallas_batched``."""
-    if boxes.device.type == "cpu":
-        return nms_sorted_batched_plain(
-            boxes, valid, max_outputs, iou_threshold, suppress_at_equal,
-            pad_value)
+    return torch.ops.sln_amodal.nms_sorted_batched.default(
+        boxes, valid, int(max_outputs), float(iou_threshold), bool(suppress_at_equal),
+        int(pad_value))
+
+
+def launch_nms(boxes: torch.Tensor, valid: torch.Tensor, max_outputs: int,
+               iou_threshold: float, suppress_at_equal: bool, pad_value: int):
+    """The kernel on CUDA tensors (the op's CUDA implementation): checks,
+    outputs and scratch, one launch."""
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
     if boxes.dim() != 3 or boxes.shape[-1] != 4:

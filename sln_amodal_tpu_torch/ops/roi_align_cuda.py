@@ -1,15 +1,18 @@
-"""Batched FPN RoIAlign and its gradient: the CUDA kernels' wrappers.
+"""Batched FPN RoIAlign and its gradient: the CUDA kernels' launches and
+the wrappers the model calls.
 
-:func:`pyramid_roi_align` is a ``torch.autograd.Function``
-(:class:`PyramidRoIAlign`):
+:func:`pyramid_roi_align` calls the custom op ``sln_amodal::roi_align``
+and :func:`pyramid_roi_align_backward` the op ``sln_amodal::roi_align_backward``
+(``ops/library.py``, which also registers the first one's gradient as the
+second):
 
-- forward: a CUDA tensor goes to the hand-written kernel
-  ``csrc/roi_align.cu`` (the port of the TPU kernel
+- forward: a CUDA tensor goes to :func:`launch_roi_align`, the hand-written
+  kernel ``csrc/roi_align.cu`` (the port of the TPU kernel
   ``sln_amodal_tpu/ops/roi_patch_pallas.py::_patch_kernel``), a CPU tensor
   to the plain version :func:`.roi_align.pyramid_roi_align_plain`;
 - backward (the JAX package's custom VJP, ``ops/roi_align.py:650-673``): a
-  CUDA tensor goes to the deterministic kernel
-  ``csrc/roi_align_backward.cu``, a CPU tensor to
+  CUDA tensor goes to :func:`launch_roi_align_backward`, the deterministic
+  kernel ``csrc/roi_align_backward.cu``, a CPU tensor to
   :func:`.roi_align.pyramid_roi_align_backward_plain`; the boxes get no
   gradient (the JAX VJP gives zeros, and the model detaches the ROIs).
 
@@ -17,9 +20,9 @@ There is no fallback from a kernel to its plain version. Both kernels
 compute their own sampling geometry from the boxes (the plain version's
 :func:`.roi_align.sample_geometry`, bit for bit as the card computes it,
 from the shared ``csrc/roi_align_geometry.cuh``), so each call is one launch
-and the wrapper adds only its checks and the outputs' allocation. Under
-``torch.no_grad``, or when no level requires a gradient, the forward is
-the one launch and nothing is saved for a backward.
+and the launch function adds only its checks and the outputs' allocation.
+Under ``torch.no_grad``, or when no level requires a gradient, the forward
+is the one launch and nothing is saved for a backward.
 """
 
 from __future__ import annotations
@@ -27,13 +30,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..cuda_build import DOUBLE, FLOAT, INT, VOIDP, CudaKernel
-from .roi_align import pyramid_roi_align_backward_plain, pyramid_roi_align_plain
 
 ROI_ALIGN_KERNEL = CudaKernel("roi_align.cu", {
     "roi_align_batched": (VOIDP, VOIDP, VOIDP, INT, INT, INT, INT, INT, INT,
@@ -98,19 +100,15 @@ def _check_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor) -> None
         raise ValueError(f"C must be a multiple of {vec} and the levels 16-byte aligned")
 
 
-def roi_align_forward(
-    features: Sequence[torch.Tensor],
+def launch_roi_align(
+    features: List[torch.Tensor],
     boxes: torch.Tensor,
-    crop_size: Tuple[int, int],
-    image_shape: Tuple[int, int],
-    extrapolation_value: float = 0.0,
+    crop_size: Sequence[int],
+    image_shape: Sequence[int],
+    extrapolation_value: float,
 ) -> torch.Tensor:
-    """The forward without autograd: the kernel on the card, the plain
-    version on the CPU. Returns [B, N, ch, cw, C]."""
-    features = list(features)
-    if boxes.device.type == "cpu":
-        return pyramid_roi_align_plain(
-            features, boxes, crop_size, image_shape, extrapolation_value)
+    """The forward kernel on CUDA tensors (the op's CUDA implementation):
+    checks, the output, one launch. Returns [B, N, ch, cw, C]."""
     _check_inputs(features, boxes)
     b, n = boxes.shape[:2]
     c = features[0].shape[-1]
@@ -149,28 +147,27 @@ def backward_chunk(c: int, w_max: int, ch: int, cw: int) -> Tuple[int, int]:
     return chunk, rois
 
 
-def pyramid_roi_align_backward(
+def launch_roi_align_backward(
     grad: torch.Tensor,
     boxes: torch.Tensor,
-    shapes: Sequence[Tuple[int, int, int]],
-    crop_size: Tuple[int, int],
-    image_shape: Tuple[int, int],
+    heights: Sequence[int],
+    widths: Sequence[int],
+    crop_size: Sequence[int],
+    image_shape: Sequence[int],
     dtype: torch.dtype,
-) -> Tuple[torch.Tensor, ...]:
-    """Gradient into each level ([B, H_l, W_l, C] of ``dtype`` for each
-    (H_l, W_l, C) of ``shapes``) from grad [B, N, ch, cw, C]: the kernel on
-    the card (deterministic: bit-equal across launches), the plain version
-    on the CPU."""
-    if boxes.device.type == "cpu":
-        return pyramid_roi_align_backward_plain(grad, boxes, shapes, crop_size,
-                                                image_shape, dtype)
+) -> List[torch.Tensor]:
+    """The backward kernel on CUDA tensors (the op's CUDA implementation):
+    the gradient into each level, [B, H_l, W_l, C] of ``dtype``, from grad
+    [B, N, ch, cw, C]; deterministic (bit-equal across launches)."""
+    if boxes.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes.device}")
     b, n = boxes.shape[:2]
-    c = shapes[0][-1]
+    c = grad.shape[-1]
     ch, cw = crop_size
     grads = [torch.empty((b, h, w, c), dtype=dtype, device=boxes.device)
-             for h, w, _ in shapes]
+             for h, w in zip(heights, widths)]
     if b == 0 or c == 0:
-        return tuple(grads)
+        return grads
     _check_inputs(grads, boxes)
     if tuple(grad.shape) != (b, n, ch, cw, c) or grad.dtype != dtype:
         raise ValueError(f"grad must be [{b}, {n}, {ch}, {cw}, {c}] of {dtype}, got "
@@ -178,47 +175,23 @@ def pyramid_roi_align_backward(
     if n == 0:
         for g in grads:
             g.zero_()
-        return tuple(grads)
+        return grads
     grad = grad.contiguous()
     if grad.data_ptr() % 16:
         raise ValueError("grad must be 16-byte aligned")
     boxes = boxes.contiguous()
-    chunk, rois = backward_chunk(c, max(w for _, w, _ in shapes), ch, cw)
+    chunk, rois = backward_chunk(c, max(widths), ch, cw)
     ptrs = (ctypes.c_void_p * MAX_LEVELS)(*[g.data_ptr() for g in grads])
-    heights = (ctypes.c_int * MAX_LEVELS)(*[int(h) for h, _, _ in shapes])
-    widths = (ctypes.c_int * MAX_LEVELS)(*[int(w) for _, w, _ in shapes])
+    c_heights = (ctypes.c_int * MAX_LEVELS)(*[int(h) for h in heights])
+    c_widths = (ctypes.c_int * MAX_LEVELS)(*[int(w) for w in widths])
     ROI_ALIGN_BACKWARD_KERNEL.launch(
         "roi_align_backward_batched", boxes.device, ctypes.addressof(ptrs),
-        ctypes.addressof(heights), ctypes.addressof(widths), len(shapes), c, b, n,
+        ctypes.addressof(c_heights), ctypes.addressof(c_widths), len(grads), c, b, n,
         ch, cw, boxes.data_ptr(), int(boxes.dtype == torch.float64),
         level_scale_reciprocal(tuple(image_shape), boxes.dtype), _step_reciprocal(ch),
         _step_reciprocal(cw), grad.data_ptr(), int(dtype == torch.float64), chunk, rois)
     ROI_ALIGN_BACKWARD_KERNEL.launches += 1
-    return tuple(grads)
-
-
-class PyramidRoIAlign(torch.autograd.Function):
-    """RoIAlign with the port's backward: the forward kernel (or plain
-    version) forward, the backward kernel (or plain version) backward, no
-    gradient into the boxes."""
-
-    @staticmethod
-    def forward(ctx, boxes, crop_size, image_shape, extrapolation_value, *features):
-        out = roi_align_forward(features, boxes, crop_size, image_shape,
-                                extrapolation_value)
-        ctx.save_for_backward(boxes)
-        ctx.shapes = [tuple(int(s) for s in f.shape[1:]) for f in features]
-        ctx.dtype = features[0].dtype
-        ctx.crop_size = tuple(crop_size)
-        ctx.image_shape = tuple(image_shape)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        (boxes,) = ctx.saved_tensors
-        grads = pyramid_roi_align_backward(
-            grad.contiguous(), boxes, ctx.shapes, ctx.crop_size, ctx.image_shape, ctx.dtype)
-        return (None, None, None, None, *grads)
+    return grads
 
 
 def pyramid_roi_align(
@@ -233,5 +206,22 @@ def pyramid_roi_align(
     multiple of 4 in float32, of 2 in float64), boxes [B, N, 4] normalized
     (float32 or float64, whatever the features' dtype). Returns
     [B, N, ch, cw, C], differentiable in the features."""
-    return PyramidRoIAlign.apply(boxes, tuple(crop_size), tuple(image_shape),
-                                 float(extrapolation_value), *features)
+    return torch.ops.sln_amodal.roi_align.default(
+        list(features), boxes, [int(s) for s in crop_size], [int(s) for s in image_shape],
+        float(extrapolation_value))
+
+
+def pyramid_roi_align_backward(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    shapes: Sequence[Tuple[int, int, int]],
+    crop_size: Tuple[int, int],
+    image_shape: Tuple[int, int],
+    dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradient into each level ([B, H_l, W_l, C] of ``dtype`` for each
+    (H_l, W_l, C) of ``shapes``; C is grad's) from grad [B, N, ch, cw, C]:
+    the kernel on the card, the plain version on the CPU."""
+    return tuple(torch.ops.sln_amodal.roi_align_backward.default(
+        grad, boxes, [int(h) for h, _, _ in shapes], [int(w) for _, w, _ in shapes],
+        [int(s) for s in crop_size], [int(s) for s in image_shape], dtype))

@@ -22,6 +22,7 @@ from sln_amodal_tpu_torch.ops.roi_align_cuda import (
     ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_KERNEL, level_scale_reciprocal,
     pyramid_roi_align, pyramid_roi_align_backward)
 from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
+from torch_port_helpers import library_op_samples
 
 pytestmark = pytest.mark.cuda
 
@@ -254,6 +255,42 @@ def test_roi_align_autograd_uses_both_kernels(cuda_device):
         before = ROI_ALIGN_BACKWARD_KERNEL.launches
         assert not pyramid_roi_align(feats, boxes, (7, 7), (1024, 1024)).requires_grad
         assert ROI_ALIGN_BACKWARD_KERNEL.launches == before
+
+
+OP_CASES = [("nms_sorted_batched", 0), ("nms_sorted_batched", 1), ("roi_align", 0),
+            ("roi_align", 1), ("roi_align_backward", 0), ("roi_align_backward", 1)]
+
+
+@pytest.mark.parametrize("name,case", OP_CASES)
+def test_opcheck_on_cuda(cuda_device, name, case):
+    """Each custom op on CUDA inputs passes ``torch.library.opcheck``: the
+    fake implementation against the kernel, the schema, autograd, AOT
+    dispatch."""
+    args, kwargs = library_op_samples(cuda_device)[name][case]
+    results = torch.library.opcheck(getattr(torch.ops.sln_amodal, name).default, args, kwargs)
+    assert set(results.values()) == {"SUCCESS"}, results
+
+
+class _TwoOps(torch.nn.Module):
+    def forward(self, boxes, valid, feats, rois):
+        keep, keep_valid = nms_sorted_batched(boxes, valid, 20, 0.5)
+        return keep, keep_valid, pyramid_roi_align(feats, rois, (5, 5), (128, 128))
+
+
+def test_exported_program_launches_the_kernels(cuda_device):
+    """A program exported on the card holds the ops, and running it
+    launches (and counts) each kernel, with the eager outputs."""
+    samples = library_op_samples(cuda_device)
+    (boxes, valid, *_), _ = samples["nms_sorted_batched"][0]
+    (feats, rois, *_), _ = samples["roi_align"][0]
+    args = (boxes, valid, [f.detach() for f in feats], rois)
+    program = torch.export.export(_TwoOps(), args, strict=False).module()
+    counts = NMS_KERNEL.launches, ROI_ALIGN_KERNEL.launches
+    got = program(*args)
+    assert (NMS_KERNEL.launches, ROI_ALIGN_KERNEL.launches) == (counts[0] + 1, counts[1] + 1)
+    want = _TwoOps()(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 SMALL = dict(image_size=128, backbone="resnet50", glm_input_size=65, pre_nms_limit=400,

@@ -225,15 +225,6 @@ def test_evaluate_data_parallel_equals_one_device(weights, reduced_cli, tmp_path
         assert np.array_equal(sharded.stats[key], plain.stats[key]), key
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["evaluate", "--trace_dir", "/tmp/tb"], "item 14"),
-])
-def test_later_slices_exit_with_their_roadmap_item(argv, item, tmp_path):
-    with pytest.raises(SystemExit) as exc:
-        port_train.main([argv[0], "--dataset", str(tmp_path), *argv[1:]])
-    assert item in str(exc.value.code) and "not ported yet" in str(exc.value.code)
-
-
 def test_train_device_prep_builds_device_prep_loaders(tmp_path, monkeypatch):
     """``train --device_prep`` hands the trainer a ``DevicePrepLoader`` on
     ``--device``, and builds one for validation (augment off)."""
@@ -306,7 +297,8 @@ leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "jaxlib", "flax", "sln_amodal_tpu")
                 and sys.modules[n] is not None)
 assert not leaked, leaked
-for name in ("data.device_prep", "cli.convert_dataset", "parallel.mesh", "parallel.multihost"):
+for name in ("data.device_prep", "cli.convert_dataset", "parallel.mesh", "parallel.multihost",
+             "ops.library", "serve.export", "cli.export_model", "utils.profiling", "viz"):
     assert "sln_amodal_tpu_torch." + name in names, name
 print(len(names))
 """
