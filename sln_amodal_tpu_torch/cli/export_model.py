@@ -11,7 +11,9 @@ The artifact directory (``model.pt2`` with the weights inside, and
 no checkpoint handling on the serving host. See ``serve/export.py`` for the
 format. The port's counterpart of the JAX package's ``cli/export_model.py``;
 ``--device`` (the card by default) takes the place of its ``--platforms``.
-The graph is exported in float32: the port has no bfloat16 compute yet.
+The graph is exported in the ``Config`` default dtypes (bfloat16 compute,
+float32 parameters; the weights are stored as the graph uses them, in
+bfloat16), as the JAX package's CLI exports.
 """
 
 from __future__ import annotations
@@ -31,8 +33,7 @@ from ..utils.logging import log
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Export a serving artifact of the PyTorch port. The graph runs in "
-                    "float32 (bfloat16 compute is not ported yet).")
+        description="Export a serving artifact of the PyTorch port.")
     p.add_argument("--model", required=True,
                    help="reference .pth path, or 'random' (seeded weights)")
     p.add_argument("--out", required=True, help="artifact output directory")
@@ -57,8 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
-    config = inference_config(image_size=args.image_size, compute_dtype="float32",
-                              param_dtype="float32")
+    config = inference_config(image_size=args.image_size)
     template = init_params(config, seed=args.seed, device=args.device)
     if args.model.lower() == "random":
         state_dict = template

@@ -6,7 +6,8 @@ Usage:
     python -m sln_amodal_tpu_torch.cli.test_images --images ./images \\
         --model ./checkpoints/COCOA.pth --out ./results
 
-Runs on the card (``--device cuda``, the default) in float32.
+Runs on the card (``--device cuda``, the default) in the ``Config`` default
+dtypes: bfloat16 compute, float32 parameters.
 """
 
 from __future__ import annotations
@@ -29,8 +30,7 @@ from ..utils.logging import log
 def main(argv=None) -> List[str]:
     """Returns the paths written."""
     p = argparse.ArgumentParser(
-        description="Detect amodal instances in every image of a directory "
-                    "(float32; bfloat16 compute is not ported yet).")
+        description="Detect amodal instances in every image of a directory.")
     p.add_argument("--images", required=True, help="directory of images")
     p.add_argument("--model", required=False, help="reference .pth path")
     p.add_argument("--glm_weights", default="./checkpoints/deeplabv2.pth")
@@ -40,8 +40,7 @@ def main(argv=None) -> List[str]:
                    help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
 
-    config = inference_config(image_size=args.image_size, compute_dtype="float32",
-                              param_dtype="float32")
+    config = inference_config(image_size=args.image_size)
     weights = init_params(config, seed=0, device=args.device)
     if args.model and os.path.exists(args.model):
         glm = args.glm_weights if os.path.exists(args.glm_weights) else None

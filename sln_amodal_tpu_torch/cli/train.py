@@ -7,9 +7,9 @@ Usage:
     python -m sln_amodal_tpu_torch.cli.train evaluate --dataset /path/coco_amodal \\
         --model ./checkpoints/COCOA.pth --data_type COCOA --limit 100
 
-Both run on the card (``--device cuda``, the default) in float32: the port
-has no bfloat16 compute yet, so they do not follow the ``Config`` default
-``compute_dtype="bfloat16"`` of the JAX package's CLI. ``train`` runs the
+Both run on the card (``--device cuda``, the default) in the ``Config``
+default dtypes, as the JAX package's CLI: bfloat16 compute with float32
+parameters, gradients and optimizer state. ``train`` runs the
 reference's three-stage schedule, or one ``--stage`` for ``--epochs``, and
 saves a reference-layout ``.pth`` (which ``evaluate`` loads) and a
 ``.pth.state`` resume file after every epoch; with ``--device_prep`` its
@@ -60,8 +60,7 @@ DEFAULT_GLM_WEIGHTS = "./checkpoints/deeplabv2.pth"
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train or evaluate SLN-Amodal with the PyTorch port. Runs in "
-                    "float32 (bfloat16 compute is not ported yet).")
+        description="Train or evaluate SLN-Amodal with the PyTorch port.")
     p.add_argument("command", metavar="<command>", help="'train' or 'evaluate'")
     p.add_argument("--dataset", required=True, help="COCO-amodal dataset root")
     p.add_argument("--year", default="2014")
@@ -124,9 +123,8 @@ def refuse_unknown_command(args) -> None:
 
 
 def eval_config(args) -> Config:
-    """The evaluation config at the model's full width, in float32."""
-    return inference_config(image_size=args.image_size, name=args.data_type.lower(),
-                            compute_dtype="float32", param_dtype="float32")
+    """The evaluation config at the model's full width (bfloat16 compute)."""
+    return inference_config(image_size=args.image_size, name=args.data_type.lower())
 
 
 def resolve_weights(args, config: Config, template):
@@ -249,11 +247,10 @@ def run_evaluate(args) -> Evaluation:
 
 
 def train_config(args) -> Config:
-    """The training config at the model's full width, in float32."""
+    """The training config at the model's full width (bfloat16 compute)."""
     return training_config(image_size=args.image_size, batch_size=args.batch_size,
                            steps_per_epoch=args.steps_per_epoch,
-                           name=args.data_type.lower(), compute_dtype="float32",
-                           param_dtype="float32")
+                           name=args.data_type.lower())
 
 
 def load_train_dataset(args, subset: str) -> AmodalDataset:

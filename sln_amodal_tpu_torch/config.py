@@ -97,7 +97,9 @@ class Config:
     gradient_clip_norm: float = 5.0
 
     # --- compute ----------------------------------------------------------
-    # The port runs float32 or float64; bfloat16 compute is not ported yet.
+    # Convolutions and matmuls run in compute_dtype (bfloat16, float32 or
+    # float64); parameters are held in param_dtype (float32 or float64) and
+    # cast to the compute dtype at use, as in the JAX package.
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     # TPU kernel selection in the JAX package. Carried for the shared

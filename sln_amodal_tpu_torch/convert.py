@@ -13,7 +13,7 @@ port keeps its own copy of the flax -> reference mapping:
   running_var).
 
 Arrays keep their dtype. :func:`init_params` makes a state_dict of the same
-layout from a seed, for runs with no JAX at hand.
+layout from a seed, in ``param_dtype``, for runs with no JAX at hand.
 """
 
 from __future__ import annotations
@@ -60,6 +60,16 @@ def _bn(sd: StateDict, tree: Mapping, name: str) -> None:
         sd[f"{name}.{dst}"] = _t(tree[src])
 
 
+def mask_layers(sd: StateDict, tree: Mapping, prefix: str) -> None:
+    """The conv stack of the mask head (and of the refine head, which has
+    its layers): ``{prefix}conv1..5``, ``{prefix}bn1..4``, ``{prefix}deconv``."""
+    for i in range(1, 5):
+        _conv(sd, tree[f"conv{i}"], f"{prefix}conv{i}")
+        _bn(sd, tree[f"frozen_bn{i}"], f"{prefix}bn{i}")
+    _deconv(sd, tree["deconv"], f"{prefix}deconv")
+    _conv(sd, tree["conv5"], f"{prefix}conv5")
+
+
 def _numbered(tree: Mapping, prefix: str):
     """Subtree keys ``{prefix}{i}`` in numeric order."""
     keys = [k for k in tree if re.fullmatch(rf"{prefix}\d+", k)]
@@ -98,12 +108,10 @@ def params_from_jax(variables: Mapping) -> StateDict:
     _linear(sd, cls["linear_class"], "classifier.linear_class")
     _linear(sd, cls["linear_bbox"], "classifier.linear_bbox")
 
-    mask = p["mask"]
-    for i in range(1, 5):
-        _conv(sd, mask[f"conv{i}"], f"mask.conv{i}")
-        _bn(sd, mask[f"frozen_bn{i}"], f"mask.bn{i}")
-    _deconv(sd, mask["deconv"], "mask.deconv")
-    _conv(sd, mask["conv5"], "mask.conv5")
+    # the mask head, and the refine head where the tree has one
+    for head in ("mask", "amodal_refine"):
+        if head in p:
+            mask_layers(sd, p[head], f"{head}.")
 
     base = p["glm"]["base"]
     prefix = "GLM_modual.base"
@@ -138,7 +146,7 @@ def init_params(config: Config, seed: int = 0, device="cuda") -> StateDict:
         skeleton = SLNAmodal(config.replace(compute_dtype="float32",
                                             param_dtype="float32"), device="meta")
     gen = torch.Generator().manual_seed(seed)
-    dtype = torch_dtype(config.compute_dtype)
+    dtype = torch_dtype(config.param_dtype)
     sd: StateDict = {}
     for mod_name, mod in skeleton.named_modules():
         prefix = f"{mod_name}." if mod_name else ""

@@ -24,17 +24,21 @@
 //     the block's geometry into shared memory, then every thread samples
 //     one (column, channel vector) pair, so all columns of the row are in
 //     flight at once and no feature load waits on a global geometry read;
-//   - channels move as 16-byte vectors (float4, double2; the wrapper
-//     requires C and the pointers to allow it): each corner read and each
-//     output write of a warp is a contiguous, coalesced run of the NHWC
-//     level and of the output;
+//   - channels move as 16-byte vectors (4 float32, 2 float64 or 8
+//     bfloat16; the wrapper requires C and the pointers to allow it): each
+//     corner read and each output write of a warp is a contiguous,
+//     coalesced run of the NHWC level and of the output;
 //   - samples outside the level write the extrapolation value and read no
 //     features; output stores are streaming (evict first).
 // Exactness: the lerp is top = tl + (tr - tl) * xl, bot = bl + (br - bl) * xl,
 // out = top + (bot - top) * yl in the feature dtype with each rounding
 // spelled out (no fused multiply-add, -fmad=false), the order of the plain
-// PyTorch version, so the two agree bit for bit.
+// PyTorch version, so the two agree bit for bit. bfloat16 features are
+// widened to float32, interpolated in that order in float32 with the
+// float32 lerps, and rounded once to bfloat16 at the store (as the plain
+// version computes them).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -58,10 +62,10 @@ struct alignas(sizeof(T) * V) Vec {
 template <typename T, int V>
 __device__ __forceinline__ void store_streaming(T* p, const Vec<T, V>& x) {
   static_assert(sizeof(T) * V == 16, "16-byte vectors");
-  if constexpr (sizeof(T) == 4)
-    __stcs(reinterpret_cast<float4*>(p), *reinterpret_cast<const float4*>(&x));
-  else
+  if constexpr (sizeof(T) == 8)
     __stcs(reinterpret_cast<double2*>(p), *reinterpret_cast<const double2*>(&x));
+  else
+    __stcs(reinterpret_cast<float4*>(p), *reinterpret_cast<const float4*>(&x));
 }
 
 template <typename T, typename BT, int V>
@@ -110,9 +114,10 @@ roi_align_kernel(Levels levels, const BT* __restrict__ boxes, int c, int n_per_i
   __syncthreads();
 
   // Gather: one (column, channel vector) per thread, all columns at once.
+  using A = typename Wide<T>::type;
   const int cv = c / V;
   const bool vy = row.valid != 0;
-  const T yl = static_cast<T>(row.lerp);
+  const A yl = static_cast<A>(row.lerp);
   const T* top = row_top;
   const T* bottom = row_bottom;
   T* o = out + ((static_cast<size_t>(r) * ch + i) * cw + j0) * c;
@@ -122,7 +127,7 @@ roi_align_kernel(Levels levels, const BT* __restrict__ boxes, int c, int n_per_i
     const Sample s = cols[j];
     Vec<T, V> res;
     if (vy && s.valid) {
-      const T xl = static_cast<T>(s.lerp);
+      const A xl = static_cast<A>(s.lerp);
       const size_t lo = static_cast<size_t>(s.lo) * c + k;
       const size_t hi = static_cast<size_t>(s.hi) * c + k;
       const Vec<T, V> tl = *reinterpret_cast<const Vec<T, V>*>(top + lo);
@@ -131,9 +136,11 @@ roi_align_kernel(Levels levels, const BT* __restrict__ boxes, int c, int n_per_i
       const Vec<T, V> br = *reinterpret_cast<const Vec<T, V>*>(bottom + hi);
 #pragma unroll
       for (int q = 0; q < V; ++q) {
-        const T tv = add_rn(tl.v[q], mul_rn(sub_rn(tr.v[q], tl.v[q]), xl));
-        const T bv = add_rn(bl.v[q], mul_rn(sub_rn(br.v[q], bl.v[q]), xl));
-        res.v[q] = add_rn(tv, mul_rn(sub_rn(bv, tv), yl));
+        const A a_tl = widen(tl.v[q]), a_tr = widen(tr.v[q]);
+        const A a_bl = widen(bl.v[q]), a_br = widen(br.v[q]);
+        const A tv = add_rn(a_tl, mul_rn(sub_rn(a_tr, a_tl), xl));
+        const A bv = add_rn(a_bl, mul_rn(sub_rn(a_br, a_bl), xl));
+        res.v[q] = narrow<T>(add_rn(tv, mul_rn(sub_rn(bv, tv), yl)));
       }
     } else {
 #pragma unroll
@@ -156,15 +163,27 @@ int launch(const Levels& levels, const void* boxes, int c, int batch, int n_per_
   const size_t smem = static_cast<size_t>(cols_per_block) * sizeof(Sample);
   roi_align_kernel<T, BT, V><<<grid, threads, smem, stream>>>(
       levels, static_cast<const BT*>(boxes), c, n_per_image, ch, cw, cols_per_block,
-      static_cast<BT>(inv_scale), recip_y, recip_x, static_cast<T>(extrapolation),
-      static_cast<T*>(out));
+      static_cast<BT>(inv_scale), recip_y, recip_x,
+      narrow<T>(static_cast<typename Wide<T>::type>(extrapolation)), static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_for_boxes(const Levels& levels, const void* boxes, int boxes_double, int c,
+                     int batch, int n_per_image, int ch, int cw, double inv_scale,
+                     float recip_y, float recip_x, double extrapolation, void* out,
+                     cudaStream_t stream) {
+  if (boxes_double)
+    return launch<T, double>(levels, boxes, c, batch, n_per_image, ch, cw, inv_scale,
+                             recip_y, recip_x, extrapolation, out, stream);
+  return launch<T, float>(levels, boxes, c, batch, n_per_image, ch, cw, inv_scale, recip_y,
+                          recip_x, extrapolation, out, stream);
 }
 
 }  // namespace
 
 // levels: n_levels (1..4) NHWC tensors [B, H_l, W_l, C] (P2, P3, ...) of the
-// feature dtype (f64 if double_precision, else f32); boxes [B, N, 4]
+// feature dtype (dtype_code: kFloat32, kFloat64 or kBFloat16); boxes [B, N, 4]
 // normalized (y1, x1, y2, x2), f64 if boxes_double, else f32; inv_scale the
 // reciprocal of 224 / sqrt(image area) in the boxes' dtype; recip_y/recip_x
 // the float32 1 / (ch - 1) and 1 / (cw - 1) (unused where that size is 1);
@@ -174,8 +193,8 @@ extern "C" int roi_align_batched(const void* const* level_ptrs, const int* heigh
                                  const int* widths, int n_levels, int c, int batch,
                                  int n_per_image, int ch, int cw, const void* boxes,
                                  int boxes_double, double inv_scale, float recip_y,
-                                 float recip_x, double extrapolation,
-                                 int double_precision, void* out, void* stream) {
+                                 float recip_x, double extrapolation, int dtype_code,
+                                 void* out, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
   Levels levels;
   for (int l = 0; l < kMaxLevels; ++l) {
@@ -186,16 +205,18 @@ extern "C" int roi_align_batched(const void* const* level_ptrs, const int* heigh
   }
   levels.n = n_levels;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (double_precision) {
-    if (boxes_double)
-      return launch<double, double>(levels, boxes, c, batch, n_per_image, ch, cw,
-                                    inv_scale, recip_y, recip_x, extrapolation, out, s);
-    return launch<double, float>(levels, boxes, c, batch, n_per_image, ch, cw,
-                                 inv_scale, recip_y, recip_x, extrapolation, out, s);
+  switch (dtype_code) {
+    case kFloat32:
+      return launch_for_boxes<float>(levels, boxes, boxes_double, c, batch, n_per_image, ch,
+                                     cw, inv_scale, recip_y, recip_x, extrapolation, out, s);
+    case kFloat64:
+      return launch_for_boxes<double>(levels, boxes, boxes_double, c, batch, n_per_image, ch,
+                                      cw, inv_scale, recip_y, recip_x, extrapolation, out, s);
+    case kBFloat16:
+      return launch_for_boxes<__nv_bfloat16>(levels, boxes, boxes_double, c, batch,
+                                             n_per_image, ch, cw, inv_scale, recip_y, recip_x,
+                                             extrapolation, out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (boxes_double)
-    return launch<float, double>(levels, boxes, c, batch, n_per_image, ch, cw,
-                                 inv_scale, recip_y, recip_x, extrapolation, out, s);
-  return launch<float, float>(levels, boxes, c, batch, n_per_image, ch, cw, inv_scale,
-                              recip_y, recip_x, extrapolation, out, s);
 }

@@ -11,7 +11,8 @@
 // with yw[n, i, y] = (top == y) * (1 - y_lerp) + (bottom == y) * y_lerp for a
 // valid row sample (0 otherwise), xw likewise along x, the cotangent g read
 // in float32 whatever the level dtype, the sums in float32, and dF cast to
-// the level's dtype at the end. The gradient into the boxes is zero (the
+// the level's dtype at the end (float32, float64, or bfloat16 with one
+// round-to-nearest-even). The gradient into the boxes is zero (the
 // wrapper returns none). The geometry comes from roi_align_geometry.cuh, the
 // forward kernel's own code, so levels, corners, lerps and validity are the
 // forward's bit for bit.
@@ -31,7 +32,8 @@
 //
 // What bounds it on this card: bytes. It must write every level's gradient
 // whole (P2..P5 at 1024^2, B=2, C=256, float32: 178.3 MB) and read the
-// cotangent (10.0 MB at pool 7, 52.4 MB at pool 16 for 100 ROIs per image).
+// cotangent (10.0 MB at pool 7, 52.4 MB at pool 16 for 100 ROIs per image;
+// half of each in bfloat16).
 // Cotangent loads are coalesced runs of one (ROI, i, j) row's channels; the
 // row buffer's accesses are conflict-free (a warp covers 32 consecutive
 // channels of one cell); the row is written as coalesced runs of the NHWC
@@ -39,6 +41,7 @@
 // (ALU work, no memory traffic); a later version may share it with the
 // forward pass.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -77,8 +80,12 @@ struct XTap {
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const double* p) { return __double2float_rn(*p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(double* p, float v) { *p = static_cast<double>(v); }
+__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // Exclusive prefix sum of v over the block; *total gets the sum. All
 // threads must call it.
@@ -277,10 +284,22 @@ int launch(const Levels& grads, const void* boxes, const void* grad_out, int c, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_for_boxes(const Levels& grads, const void* boxes, int boxes_double,
+                     const void* grad_out, int c, int batch, int n_per_image, int ch, int cw,
+                     int chunk, int rois_per_pass, double inv_scale, float recip_y,
+                     float recip_x, cudaStream_t stream) {
+  if (boxes_double)
+    return launch<T, double>(grads, boxes, grad_out, c, batch, n_per_image, ch, cw, chunk,
+                             rois_per_pass, inv_scale, recip_y, recip_x, stream);
+  return launch<T, float>(grads, boxes, grad_out, c, batch, n_per_image, ch, cw, chunk,
+                          rois_per_pass, inv_scale, recip_y, recip_x, stream);
+}
+
 }  // namespace
 
 // grads: n_levels (1..4) NHWC outputs [B, H_l, W_l, C] (P2, P3, ...) of the
-// level dtype (f64 if double_precision, else f32), written
+// level dtype (dtype_code: kFloat32, kFloat64 or kBFloat16), written
 // whole; boxes [B, N, 4] normalized (y1, x1, y2, x2), f64 if boxes_double,
 // else f32; grad_out [B, N, ch, cw, C] of the level dtype; inv_scale,
 // recip_y, recip_x as for roi_align_batched. chunk is the channels of one
@@ -290,9 +309,8 @@ extern "C" int roi_align_backward_batched(void* const* grad_ptrs, const int* hei
                                           const int* widths, int n_levels, int c, int batch,
                                           int n_per_image, int ch, int cw, const void* boxes,
                                           int boxes_double, double inv_scale, float recip_y,
-                                          float recip_x, const void* grad_out,
-                                          int double_precision, int chunk, int rois_per_pass,
-                                          void* stream) {
+                                          float recip_x, const void* grad_out, int dtype_code,
+                                          int chunk, int rois_per_pass, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || chunk < 1 || chunk > kThreads ||
       kThreads % chunk != 0 || rois_per_pass < 1 || rois_per_pass > kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -305,16 +323,20 @@ extern "C" int roi_align_backward_batched(void* const* grad_ptrs, const int* hei
   }
   grads.n = n_levels;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (double_precision) {
-    if (boxes_double)
-      return launch<double, double>(grads, boxes, grad_out, c, batch, n_per_image, ch, cw,
-                                    chunk, rois_per_pass, inv_scale, recip_y, recip_x, s);
-    return launch<double, float>(grads, boxes, grad_out, c, batch, n_per_image, ch, cw, chunk,
-                                 rois_per_pass, inv_scale, recip_y, recip_x, s);
+  switch (dtype_code) {
+    case kFloat32:
+      return launch_for_boxes<float>(grads, boxes, boxes_double, grad_out, c, batch,
+                                     n_per_image, ch, cw, chunk, rois_per_pass, inv_scale,
+                                     recip_y, recip_x, s);
+    case kFloat64:
+      return launch_for_boxes<double>(grads, boxes, boxes_double, grad_out, c, batch,
+                                      n_per_image, ch, cw, chunk, rois_per_pass, inv_scale,
+                                      recip_y, recip_x, s);
+    case kBFloat16:
+      return launch_for_boxes<__nv_bfloat16>(grads, boxes, boxes_double, grad_out, c, batch,
+                                             n_per_image, ch, cw, chunk, rois_per_pass,
+                                             inv_scale, recip_y, recip_x, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (boxes_double)
-    return launch<float, double>(grads, boxes, grad_out, c, batch, n_per_image, ch, cw, chunk,
-                                 rois_per_pass, inv_scale, recip_y, recip_x, s);
-  return launch<float, float>(grads, boxes, grad_out, c, batch, n_per_image, ch, cw, chunk,
-                              rois_per_pass, inv_scale, recip_y, recip_x, s);
 }

@@ -19,6 +19,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -40,6 +41,34 @@ __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
 __device__ __forceinline__ double log2_lib(double a) { return log2(a); }
 __device__ __forceinline__ double rint_(double a) { return rint(a); }
 __device__ __forceinline__ float to_f32(double a) { return __double2float_rn(a); }
+
+// Feature dtype codes of the C entry points (ops/roi_align_cuda.py).
+constexpr int kFloat32 = 0;
+constexpr int kFloat64 = 1;
+constexpr int kBFloat16 = 2;
+
+// The dtype a feature dtype is interpolated and accumulated in: bfloat16
+// in float32, the others in themselves; conversions in and out (one
+// round-to-nearest-even into bfloat16).
+template <typename T>
+struct Wide {
+  using type = T;
+};
+template <>
+struct Wide<__nv_bfloat16> {
+  using type = float;
+};
+__device__ __forceinline__ float widen(float a) { return a; }
+__device__ __forceinline__ double widen(double a) { return a; }
+__device__ __forceinline__ float widen(__nv_bfloat16 a) { return __bfloat162float(a); }
+template <typename T>
+__host__ __device__ __forceinline__ T narrow(typename Wide<T>::type a) {
+  return a;
+}
+template <>
+__host__ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float a) {
+  return __float2bfloat16_rn(a);
+}
 
 // The pyramid: n levels (P2, P3, ...) of [B, H_l, W_l, C].
 struct Levels {

@@ -19,12 +19,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float64": torch.float64}
+
+
 def torch_dtype(name: str) -> torch.dtype:
-    """Config dtype name -> torch dtype. bfloat16 compute is not ported
-    yet, so only float32 and float64 are accepted."""
-    dtypes = {"float32": torch.float32, "float64": torch.float64}
-    if name not in dtypes:
-        raise ValueError(
-            f"dtype {name!r} is not supported by the port yet "
-            f"(float32 or float64)")
-    return dtypes[name]
+    """Config dtype name -> torch dtype: bfloat16, float32 or float64."""
+    if name not in DTYPES:
+        raise ValueError(f"dtype {name!r} is not supported by the port "
+                         f"(one of {', '.join(DTYPES)})")
+    return DTYPES[name]

@@ -66,7 +66,9 @@ class Detector:
         for dev in devices:
             model = SLNAmodal(config, device=dev)
             model.load_state_dict(state_dict, strict=True)
-            self._replicas.append(model)
+            # the weights never change here: cast them to the compute dtype
+            # once, not at every use
+            self._replicas.append(model.cast_weights_to_compute_dtype())
         self.device, self.model = devices[0], self._replicas[0]
         self.detect_only = detect_only
         self.last_global_label = None

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import (FrozenBatchNorm2d, max_pool_same, nchw, nhwc,
+from .common import (Conv2d, FrozenBatchNorm2d, max_pool_same, nchw, nhwc,
                      subsample_2x, upsample_nearest_2x)
 
 RESNET_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
@@ -29,14 +29,14 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, stride=stride)
+        self.conv1 = Conv2d(inplanes, planes, 1, stride=stride)
         self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1)
         self.bn2 = FrozenBatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1)
+        self.conv3 = Conv2d(planes, planes * 4, 1)
         self.bn3 = FrozenBatchNorm2d(planes * 4)
         self.downsample = (
-            nn.Sequential(nn.Conv2d(inplanes, planes * 4, 1, stride=stride),
+            nn.Sequential(Conv2d(inplanes, planes * 4, 1, stride=stride),
                           FrozenBatchNorm2d(planes * 4))
             if downsample else None
         )
@@ -62,18 +62,18 @@ class ResNetFPN(nn.Module):
     def __init__(self, architecture: str = "resnet101", out_channels: int = 256):
         super().__init__()
         blocks = RESNET_BLOCKS[architecture]
-        self.C1 = nn.Sequential(nn.Conv2d(3, 64, 7, stride=2, padding=3),
+        self.C1 = nn.Sequential(Conv2d(3, 64, 7, stride=2, padding=3),
                                 FrozenBatchNorm2d(64))
         self.C2 = make_stage(64, 64, blocks[0], 1)
         self.C3 = make_stage(256, 128, blocks[1], 2)
         self.C4 = make_stage(512, 256, blocks[2], 2)
         self.C5 = make_stage(1024, 512, blocks[3], 2)
         for lvl, cin in ((2, 256), (3, 512), (4, 1024), (5, 2048)):
-            setattr(self, f"P{lvl}_conv1", nn.Conv2d(cin, out_channels, 1))
+            setattr(self, f"P{lvl}_conv1", Conv2d(cin, out_channels, 1))
             # index 0 is the reference's SamePad2d(3, 1), folded into the
             # conv's symmetric padding 1 (the same pads at stride 1)
             setattr(self, f"P{lvl}_conv2", nn.Sequential(
-                nn.Identity(), nn.Conv2d(out_channels, out_channels, 3, padding=1)))
+                nn.Identity(), Conv2d(out_channels, out_channels, 3, padding=1)))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         y = F.relu(self.C1(nchw(x)))

@@ -8,6 +8,12 @@ Numerical conventions follow the reference graphs: frozen batch norm
 (stored statistics applied as a scale and shift), TF-"SAME" pads where the
 reference pads with its SamePad2d shim, half-pixel bilinear resizes with no
 antialias.
+
+Layers compute in their input's dtype, as flax's ``nn.Conv(dtype=...)``
+does: :class:`Conv2d`, :class:`ConvTranspose2d` and :class:`Linear` cast
+their parameters (float32 or float64) to it at use, a no-op where they
+already hold it. In bfloat16 the resizes are the JAX package's two matmuls
+with bfloat16 interpolation weights.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -28,6 +35,33 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 def nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> NHWC view."""
     return x.permute(0, 2, 3, 1)
+
+
+def _cast(p, dtype):
+    return None if p is None else p.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: weight and bias cast to it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype: weight and bias cast to it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype),
+                                  self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype: weight and bias cast to it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype))
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -86,12 +120,60 @@ def subsample_2x(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, ::2, ::2]
 
 
+def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Row-stochastic interpolation matrix [n_out, n_in] (float64) with the
+    weights of ``F.interpolate(mode='bilinear', align_corners=False)``:
+    src = max((i + 0.5) * n_in / n_out - 0.5, 0), two-tap linear."""
+    scale = n_in / n_out
+    i = np.arange(n_out)
+    src = np.maximum((i + 0.5) * scale - 0.5, 0.0)
+    i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    w = src - i0
+    mat = np.zeros((n_out, n_in), np.float64)
+    mat[i, i0] += 1.0 - w
+    mat[i, i1] += w
+    return mat
+
+
+_RESIZE_WEIGHTS = {}
+
+
+def _resize_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """:func:`_resize_matrix` rounded to bfloat16, on ``device``; kept per
+    (sizes, device), unless it is the stand-in tensor of a trace (a
+    ``torch.export`` fake tensor), which no later call may see."""
+    key = (n_in, n_out, device)
+    w = _RESIZE_WEIGHTS.get(key)
+    if w is None:
+        with torch.inference_mode(False):
+            w = torch.from_numpy(_resize_matrix(n_in, n_out)).to(device, torch.bfloat16)
+        if type(w) is torch.Tensor:
+            _RESIZE_WEIGHTS[key] = w
+    return w
+
+
+def _resize_bf16(x: torch.Tensor, size: Tuple[int, int], spec: str) -> torch.Tensor:
+    """The JAX package's bfloat16 resize: one matmul per resized axis with
+    bfloat16 weights, each rounded to bfloat16 (``spec`` names the axes
+    after the batch and the two spatial ones: "c" or "")."""
+    h, w = x.shape[1:3]
+    oh, ow = size
+    if oh != h:
+        x = torch.einsum(f"oh,bhw{spec}->bow{spec}", _resize_weights(h, oh, x.device), x)
+    if ow != w:
+        x = torch.einsum(f"pw,bhw{spec}->bhp{spec}", _resize_weights(w, ow, x.device), x)
+    return x
+
+
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of NHWC [B, H, W, C] with half-pixel centers and no
     antialias, for up- and downscale (``align_corners=False``); computes in
-    the input's dtype."""
+    the input's dtype (bfloat16 as separable matmuls)."""
     if tuple(x.shape[1:3]) == tuple(size):
         return x
+    if x.dtype == torch.bfloat16:
+        return _resize_bf16(x, size, "c")
     y = F.interpolate(nchw(x), size=tuple(size), mode="bilinear", align_corners=False)
     return nhwc(y)
 
@@ -100,5 +182,7 @@ def resize_bilinear_2d(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """:func:`resize_bilinear` for a channel-less [B, H, W] map."""
     if tuple(x.shape[1:3]) == tuple(size):
         return x
+    if x.dtype == torch.bfloat16:
+        return _resize_bf16(x, size, "")
     y = F.interpolate(x[:, None], size=tuple(size), mode="bilinear", align_corners=False)
     return y[:, 0]

@@ -6,6 +6,8 @@ As in the JAX package's ``models/deeplab.py``:
 - dilated ResNet-101 at output stride 8 (layer4 dilation 2, layer5
   dilation 4), the stride on the 1x1 ``reduce`` conv, frozen BN eps 1e-5;
 - ASPP: the sum of four 3x3 convs at atrous rates 6/12/18/24 (with bias);
+  in bfloat16 the JAX package's form, its 36 taps as one matmul summed in
+  a float32 accumulator and rounded once;
 - multi-scale inference at scales (1.0, 0.5, 0.75): logits bilinearly
   resized to the full-scale logit grid and fused by pixel max.
 
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import FrozenBatchNorm2d, nchw, nhwc, resize_bilinear
+from .common import Conv2d, FrozenBatchNorm2d, nchw, nhwc, resize_bilinear
 
 
 class ConvBN(nn.Module):
@@ -31,8 +33,8 @@ class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, relu: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
-                              dilation=dilation, bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                           dilation=dilation, bias=False)
         self.bn = FrozenBatchNorm2d(cout, eps=1e-5)
         self.relu = relu
 
@@ -88,13 +90,42 @@ class ASPP(nn.Module):
         super().__init__()
         self.n_rates = len(rates)
         for i, r in enumerate(rates):
-            setattr(self, f"c{i}", nn.Conv2d(cin, n_classes, 3, padding=r, dilation=r))
+            setattr(self, f"c{i}", Conv2d(cin, n_classes, 3, padding=r, dilation=r))
 
     def forward(self, x):
-        out = self.c0(x)
-        for i in range(1, self.n_rates):
-            out = out + getattr(self, f"c{i}")(x)
-        return out
+        convs = [getattr(self, f"c{i}") for i in range(self.n_rates)]
+        if x.dtype != torch.bfloat16:
+            out = convs[0](x)
+            for conv in convs[1:]:
+                out = out + conv(x)
+            return out
+        return self._taps_bf16(x, convs)
+
+    def _taps_bf16(self, x, convs):
+        """The JAX package's bfloat16 ASPP: all 4 x 9 taps as one
+        [BHW, Cin] x [Cin, 36 Cout] bfloat16 matmul, each tap's plane
+        shifted by its atrous offset and added, in the order of the taps,
+        to a float32 accumulator that starts at the biases' float32 sum,
+        rounded once. (For some of these shapes, the 0.75 scale's grid
+        among them, cuDNN's bfloat16 dilated convolution falls back to a
+        direct kernel that takes most of ``detect``'s device time on an
+        H100: PERF.md §6.)"""
+        b, cin, h, w = x.shape
+        cout = convs[0].weight.shape[0]
+        # [Cin, (branch, u, v, Cout)]: flax's HWIO taps in the JAX order
+        w_all = torch.cat([c.weight.to(x.dtype).permute(1, 2, 3, 0).reshape(cin, 9 * cout)
+                           for c in convs], dim=1)
+        y = (nhwc(x).reshape(b * h * w, cin) @ w_all).reshape(b, h, w, 9 * len(convs), cout)
+        bias = sum(c.bias.to(torch.float32) for c in convs)
+        acc = bias.expand(b, h, w, cout).contiguous()
+        offsets = [((u - 1) * c.dilation[0], (v - 1) * c.dilation[1])
+                   for c in convs for u in range(3) for v in range(3)]
+        for t, (dy, dx) in enumerate(offsets):
+            i0, i1 = max(0, -dy), min(h, h - dy)
+            j0, j1 = max(0, -dx), min(w, w - dx)
+            if i0 < i1 and j0 < j1:    # else the tap reads only outside the frame
+                acc[:, i0:i1, j0:j1].add_(y[:, i0 + dy:i1 + dy, j0 + dx:j1 + dx, t])
+        return nchw(acc.to(x.dtype))
 
 
 class DeepLabV2(nn.Module):

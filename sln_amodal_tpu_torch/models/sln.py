@@ -27,9 +27,16 @@ and the proposal layer run without gradient (JAX stops it there), the
 detection-target layer samples ``train_rois_per_image`` ROIs per image, and
 the classifier and the mask head run over the detached sampled ROIs, the
 GLM prior cropped with normalized coordinates. Gradients reach P2..P5
-through the RoIAlign kernel's backward. The constructor builds an
-inference graph (no parameter requires a gradient); the trainer turns
-gradients on for the parameters of its stage.
+through the RoIAlign kernel's backward. With ``use_refine_head`` the
+refine head runs over the ``amodal_refine`` seam (output ``refined``). The
+constructor builds an inference graph (no parameter requires a gradient);
+the trainer turns gradients on for the parameters of its stage.
+
+Dtypes, as in the JAX package: parameters (and the frozen BN statistics)
+in ``param_dtype``, convolutions and matmuls in ``compute_dtype`` (the
+images are cast to it before the backbone and before the GLM resize); the
+RPN's softmax, the box math, NMS, the RoIAlign geometry, the heads' outputs,
+the GLM logits and the losses in float32 or wider.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from ..ops.roi_align_cuda import pyramid_roi_align
 from .backbone import ResNetFPN
 from .common import resize_bilinear, resize_bilinear_2d
 from .deeplab import DeepLabV2MSC
-from .heads import ClassifierHead, MaskHead, RPNHead
+from .heads import ClassifierHead, MaskHead, RefineHead, RPNHead
 
 
 class InferenceOutputs(NamedTuple):
@@ -75,21 +82,22 @@ class TrainingOutputs(NamedTuple):
     class_logits: torch.Tensor     # [B, T, C] f32
     bbox_deltas: torch.Tensor      # [B, T, C, 4] f32
     mask_logits: torch.Tensor      # [B, T, 2m, 2m, C] f32
+    refined: Optional[torch.Tensor] = None  # [B, T, 2m, 2m, C] f32 with the refine head
 
 
 class SLNAmodal(nn.Module):
     """The inference graph on ``device`` ("cuda" by default; raises when no
-    card is present unless ``device="cpu"``). Parameters are held in the
-    compute dtype, float32 or float64."""
+    card is present unless ``device="cpu"``). Parameters are held in
+    ``param_dtype`` (float32 or float64), the graph computes in
+    ``compute_dtype``."""
 
     def __init__(self, config: Config, device="cuda"):
         super().__init__()
-        if config.use_refine_head:
-            raise ValueError("the refine head is a training seam, not ported")
-        dtype = torch_dtype(config.compute_dtype)
-        if torch_dtype(config.param_dtype) != dtype:
-            raise ValueError("the port holds parameters in the compute dtype: "
-                             "param_dtype must equal compute_dtype")
+        self.compute_dtype = torch_dtype(config.compute_dtype)
+        param_dtype = torch_dtype(config.param_dtype)
+        if param_dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"param_dtype must be float32 or float64, got "
+                             f"{config.param_dtype!r}")
         dev = resolve_device(device)
         self.config = config
         self.fpn = ResNetFPN(config.backbone, config.fpn_channels)
@@ -99,15 +107,30 @@ class SLNAmodal(nn.Module):
                                          config.fpn_channels)
         self.mask = MaskHead(config.num_classes, config.mask_head_in_channels)
         self.GLM_modual = DeepLabV2MSC(config.glm_num_classes, config.glm_scales)
+        if config.use_refine_head:
+            # image crop (3) | mask logits twice | GLM-label crop (1)
+            self.amodal_refine = RefineHead(config.num_classes, 4 + 2 * config.num_classes)
         # anchors are float32 values, widened exactly to the box dtype at use
         self.register_buffer(
             "anchors", torch.from_numpy(config_anchors(config)), persistent=False)
-        self.to(device=dev, dtype=dtype)
+        self.to(device=dev, dtype=param_dtype)
         if dev.type == "cuda":
             self.to(memory_format=torch.channels_last)
         # an inference graph: no autograd state is recorded
         self.requires_grad_(False)
         self.eval()
+
+    def cast_weights_to_compute_dtype(self) -> "SLNAmodal":
+        """Hold the convolution and linear weights in the compute dtype, for
+        a model whose weights no longer change (inference): the casts each
+        layer makes at use then do nothing. The values are those the casts
+        give; the frozen BN statistics keep ``param_dtype``. A no-op where
+        the two dtypes agree."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                for p in mod.parameters(recurse=False):
+                    p.data = p.data.to(self.compute_dtype)
+        return self
 
     # ------------------------------------------------------------- pieces --
 
@@ -120,7 +143,7 @@ class SLNAmodal(nn.Module):
         the full-resolution argmax label [B, H, W] or None)."""
         cfg = self.config
         h, w = images.shape[1:3]
-        glm_in = resize_bilinear(images.to(torch_dtype(cfg.compute_dtype)),
+        glm_in = resize_bilinear(images.to(self.compute_dtype),
                                  (cfg.glm_input_size, cfg.glm_input_size))
         logits = self.GLM_modual(glm_in)                      # [B, g, g, 182] f32
         probs = torch.softmax(logits, dim=-1)
@@ -188,7 +211,7 @@ class SLNAmodal(nn.Module):
 
     def _infer_impl(self, images, windows, *, detect_only: bool):
         cfg = self.config
-        feats = self.fpn(images.to(torch_dtype(cfg.compute_dtype)))
+        feats = self.fpn(images.to(self.compute_dtype))
         _, rpn_probs, rpn_deltas = self._rpn_all_levels(feats)
         skip_glm = (detect_only and cfg.glm_prior_pixel_coords_at_inference
                     and cfg.glm_elide_at_inference)
@@ -239,7 +262,7 @@ class SLNAmodal(nn.Module):
         are ``pos_uniform``/``neg_uniform`` [B, P] (P =
         ``post_nms_rois_training``)."""
         cfg = self.config
-        feats = self.fpn(images.to(torch_dtype(cfg.compute_dtype)))
+        feats = self.fpn(images.to(self.compute_dtype))
         rpn_logits, rpn_probs, rpn_deltas = self._rpn_all_levels(feats)
         # no gradient through the prior or the proposals: both are targets
         # of the heads, not a gradient path (the reference detaches the ROIs)
@@ -257,6 +280,25 @@ class SLNAmodal(nn.Module):
         levels = [p.contiguous() for p in feats[:4]]
         class_logits, _, bbox_deltas = self._classifier_on(levels, sampled)
         mask_logits = self._mask_on(levels, sampled, glm_prior, sampled)
+        refined = (self._refine_on(images, sampled, glm_prior, mask_logits)
+                   if cfg.use_refine_head else None)
         return TrainingOutputs(rpn_logits=rpn_logits, rpn_deltas=rpn_deltas,
                                targets=targets, class_logits=class_logits,
-                               bbox_deltas=bbox_deltas, mask_logits=mask_logits)
+                               bbox_deltas=bbox_deltas, mask_logits=mask_logits,
+                               refined=refined)
+
+    def _refine_on(self, images, rois, glm_prior, mask_logits):
+        """The reference's dormant ``amodal_refine`` seam (the JAX package's
+        ``models/sln.py:351-377``): the image crop / 140, the mask logits
+        (no gradient) twice and the GLM-label crop, fused at the mask size,
+        through the refine head. rois [B, T, 4] normalized."""
+        b, t = rois.shape[:2]
+        mh = self.config.mask_shape[0]
+        boxes = rois.reshape(b * t, 4)
+        box_indices = torch.arange(b, device=rois.device).repeat_interleave(t)
+        img_crop = crop_and_resize(images / 140.0, boxes, box_indices, (mh, mh))
+        lab_crop = crop_and_resize(glm_prior[..., -1:], boxes, box_indices, (mh, mh))
+        mask_small = mask_logits.detach().reshape(b * t, *mask_logits.shape[2:])
+        fused = torch.cat([img_crop, mask_small, mask_small, lab_crop], dim=-1)
+        refined = self.amodal_refine(fused.to(self.compute_dtype))
+        return refined.reshape(b, t, *refined.shape[1:])

@@ -111,7 +111,9 @@ def pyramid_roi_align_plain(
 
     features: [B, H_l, W_l, C] maps ordered P2, P3, ...; boxes [B, N, 4]
     normalized. Returns [B, N, ch, cw, C]. The lerp runs in the feature
-    dtype in the order of the reference gather path."""
+    dtype in the order of the reference gather path; bfloat16 features are
+    interpolated in float32 in that order and rounded once at the end (the
+    CUDA kernel's arithmetic; the JAX gather rounds each op to bfloat16)."""
     b, n = boxes.shape[:2]
     shapes = [tuple(f.shape[1:]) for f in features]
     c = shapes[0][-1]
@@ -131,16 +133,18 @@ def pyramid_roi_align_plain(
     wl_i = widths[lvl_idx][:, None, None]
     img_off = torch.arange(b, device=dev).repeat_interleave(n) * total
     off_i = (offsets[lvl_idx] + img_off)[:, None, None]
-    y_lerp = y_lerp.to(flat.dtype)
-    x_lerp = x_lerp.to(flat.dtype)
+    lerp_dtype = torch.promote_types(flat.dtype, F32)
+    y_lerp = y_lerp.to(lerp_dtype)
+    x_lerp = x_lerp.to(lerp_dtype)
 
-    def flat_idx(yy, xx):
-        return off_i + yy.long()[:, :, None] * wl_i + xx.long()[:, None, :]
+    def corner(yy, xx):
+        idx = off_i + yy.long()[:, :, None] * wl_i + xx.long()[:, None, :]
+        return flat[idx].to(lerp_dtype)
 
-    tl = flat[flat_idx(top, left)]
-    tr = flat[flat_idx(top, right)]
-    bl = flat[flat_idx(bottom, left)]
-    br = flat[flat_idx(bottom, right)]
+    tl = corner(top, left)
+    tr = corner(top, right)
+    bl = corner(bottom, left)
+    br = corner(bottom, right)
 
     top_v = tl + (tr - tl) * x_lerp[:, None, :, None]
     bot_v = bl + (br - bl) * x_lerp[:, None, :, None]
@@ -148,8 +152,8 @@ def pyramid_roi_align_plain(
 
     valid = valid_y[:, :, None, None] & valid_x[:, None, :, None]
     out = torch.where(valid, out, torch.full((), extrapolation_value,
-                                             dtype=flat.dtype, device=dev))
-    return out.reshape(b, n, *out.shape[1:])
+                                             dtype=lerp_dtype, device=dev))
+    return out.to(flat.dtype).reshape(b, n, *out.shape[1:])
 
 
 def _axis_taps(lo: torch.Tensor, hi: torch.Tensor, lerp: torch.Tensor,
@@ -181,7 +185,8 @@ def pyramid_roi_align_backward_plain(
     (a = sum_j xw * g) and then with the y weights (dF = sum_{n,i} yw * a),
     both in float32, over the ROIs of each level; invalid samples and
     samples of other levels weigh zero. Returns one [B, H_l, W_l, C] tensor
-    per level of ``shapes`` ((H_l, W_l, C) each), cast to ``dtype``. The
+    per level of ``shapes`` ((H_l, W_l, C) each), cast to ``dtype`` (one
+    rounding where that is bfloat16). The
     boxes get no gradient. The contractions are ``index_add_`` over the two
     nonzero taps of each one-hot weight row, the same products as the
     einsums', summed in another order."""

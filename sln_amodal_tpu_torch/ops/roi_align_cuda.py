@@ -49,6 +49,8 @@ ROI_ALIGN_BACKWARD_KERNEL = CudaKernel("roi_align_backward.cu", {
 })
 
 MAX_LEVELS = 4
+# the kernels' feature dtype codes (csrc/roi_align_geometry.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # the backward kernel's block: 256 threads, one row buffer of float32
 # [widest level, channel chunk] in shared memory, ROIs scanned 256 at a time
 BACKWARD_THREADS = 256
@@ -84,8 +86,8 @@ def _check_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor) -> None
         raise ValueError(f"boxes must be float32 or float64, got {boxes.dtype}")
     b, n = boxes.shape[:2]
     dtype = features[0].dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"features must be float32 or float64, got {dtype}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"features must be float32, float64 or bfloat16, got {dtype}")
     c = features[0].shape[-1]
     for f in features:
         if f.device != boxes.device or f.dtype != dtype:
@@ -126,8 +128,7 @@ def launch_roi_align(
         ctypes.addressof(heights), ctypes.addressof(widths), len(features), c, b, n,
         ch, cw, boxes.data_ptr(), int(boxes.dtype == torch.float64),
         level_scale_reciprocal(tuple(image_shape), boxes.dtype), _step_reciprocal(ch),
-        _step_reciprocal(cw), float(extrapolation_value), int(dtype == torch.float64),
-        out.data_ptr())
+        _step_reciprocal(cw), float(extrapolation_value), DTYPE_CODES[dtype], out.data_ptr())
     ROI_ALIGN_KERNEL.launches += 1
     return out
 
@@ -189,7 +190,7 @@ def launch_roi_align_backward(
         ctypes.addressof(c_heights), ctypes.addressof(c_widths), len(grads), c, b, n,
         ch, cw, boxes.data_ptr(), int(boxes.dtype == torch.float64),
         level_scale_reciprocal(tuple(image_shape), boxes.dtype), _step_reciprocal(ch),
-        _step_reciprocal(cw), grad.data_ptr(), int(dtype == torch.float64), chunk, rois)
+        _step_reciprocal(cw), grad.data_ptr(), DTYPE_CODES[dtype], chunk, rois)
     ROI_ALIGN_BACKWARD_KERNEL.launches += 1
     return grads
 
@@ -202,10 +203,11 @@ def pyramid_roi_align(
     extrapolation_value: float = 0.0,
 ) -> torch.Tensor:
     """Multi-level RoIAlign: features [B, H_l, W_l, C] (P2..P5, NHWC,
-    contiguous, 16-byte aligned, float32 or float64; on the card C a
-    multiple of 4 in float32, of 2 in float64), boxes [B, N, 4] normalized
-    (float32 or float64, whatever the features' dtype). Returns
-    [B, N, ch, cw, C], differentiable in the features."""
+    contiguous, 16-byte aligned, float32, float64 or bfloat16; on the card
+    C a multiple of 4 in float32, of 2 in float64, of 8 in bfloat16), boxes
+    [B, N, 4] normalized (float32 or float64, whatever the features' dtype).
+    Returns [B, N, ch, cw, C] in the features' dtype, differentiable in the
+    features."""
     return torch.ops.sln_amodal.roi_align.default(
         list(features), boxes, [int(s) for s in crop_size], [int(s) for s in image_shape],
         float(extrapolation_value))

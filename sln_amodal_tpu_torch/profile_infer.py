@@ -2,7 +2,8 @@
 
     python -m sln_amodal_tpu_torch.profile_infer [--batch 2] [--repeats 5]
 
-The model runs at full width (``Config()`` defaults, float32, TF32 off) on
+The model runs at full width (``Config()`` defaults: bfloat16 compute,
+float32 parameters; TF32 off for what runs in float32) on
 seeded uint8 images, with random seeded weights shaped as ``chip_smoke.py``
 shapes them, so the mask head runs over 100 real detections per image.
 Prints JSON lines:
@@ -60,7 +61,7 @@ def stage_times(det: Detector, x: torch.Tensor, windows: torch.Tensor) -> dict:
 
     events[0][1].record()
     with torch.no_grad():
-        feats = m.fpn(x)
+        feats = m.fpn(x.to(m.compute_dtype))
         mark("backbone_fpn")
         _, rpn_probs, rpn_deltas = m._rpn_all_levels(feats)
         mark("rpn_head")
@@ -134,7 +135,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = Config(compute_dtype="float32", param_dtype="float32")
+    cfg = Config()
     det = make_detector(cfg, args.seed, dev)
     rng = np.random.RandomState(args.seed)
     images = [rng.randint(0, 256, (cfg.image_size, cfg.image_size, 3), np.uint8)
@@ -142,7 +143,7 @@ def main() -> int:
     det.detect(images)                     # warm-up: cuDNN picks its algorithms
 
     molded, windows = mold_inputs(images, cfg)
-    x = torch.from_numpy(molded).to(dev).to(torch.float32) - det._mean
+    x = torch.from_numpy(molded).to(dev).to(torch.float32) - det._mean[0]
     w = torch.as_tensor(windows, dtype=torch.float32, device=dev)
 
     stages = defaultdict(list)

@@ -2,8 +2,8 @@
 
     python -m sln_amodal_tpu_torch.profile_train [--batch 2] [--repeats 5]
 
-The model runs at full width (``Config()`` defaults, float32, TF32 off). The
-weights are the RPN-biased checkpoint of ``chip_smoke.py``'s train phase
+The model runs at full width (``Config()`` defaults: bfloat16 compute,
+float32 parameters; TF32 off for what runs in float32). The weights are the RPN-biased checkpoint of ``chip_smoke.py``'s train phase
 (``utils/synthetic.py::rpn_biased_variables`` with a zero shared RPN conv,
 so the proposals are the anchors in order) and the batch has two ground
 truth boxes per image on the first proposals, so positive ROIs reach the
@@ -90,7 +90,7 @@ def stage_times(model: SLNAmodal, optimizer, batch: dict, generator) -> dict:
         events.append((name, ev))
 
     events[0][1].record()
-    feats = m.fpn(batch["images"])
+    feats = m.fpn(batch["images"].to(m.compute_dtype))
     mark("backbone_fpn")
     rpn_logits, rpn_probs, rpn_deltas = m._rpn_all_levels(feats)
     mark("rpn_head")
@@ -132,7 +132,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = Config(compute_dtype="float32", param_dtype="float32", batch_size=args.batch)
+    cfg = Config(batch_size=args.batch)
     sd = rpn_biased_variables(init_params(cfg, seed=args.seed, device="cpu"))
     sd["rpn.conv_shared.weight"].zero_()
     sd["rpn.conv_shared.bias"].zero_()

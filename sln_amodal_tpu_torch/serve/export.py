@@ -8,7 +8,7 @@ exports the jitted program as StableHLO. Here the artifact is a directory::
                     (images_u8 [B, S, S, 3], windows [B, 4] f32) -> outputs,
                     the weights inside it
     manifest.json   format_version, config, batch, detect_only, device_type,
-                    torch_version, mesh_size, outputs
+                    compute_dtype, torch_version, mesh_size, outputs
 
 The program is the graph :class:`~sln_amodal_tpu_torch.infer.Detector`
 launches: uint8 resized images in, the mean pixel subtracted on the device,
@@ -95,6 +95,7 @@ def export_detector(
 
     model = SLNAmodal(config, device=dev)
     model.load_state_dict(state_dict, strict=True)
+    model.cast_weights_to_compute_dtype()      # as Detector holds them
     s = config.image_size
     example = (torch.zeros((per_replica, s, s, 3), dtype=torch.uint8, device=dev),
                torch.zeros((per_replica, 4), dtype=torch.float32, device=dev))
@@ -109,6 +110,7 @@ def export_detector(
         "batch": batch,
         "detect_only": detect_only,
         "device_type": dev.type,
+        "compute_dtype": config.compute_dtype,
         "torch_version": torch.__version__,
         "mesh_size": len(mesh) if mesh is not None else 1,
         "outputs": list((DetectOutputs if detect_only else InferenceOutputs)._fields),

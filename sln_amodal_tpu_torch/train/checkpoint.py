@@ -9,7 +9,9 @@ takes the two other files the reference uses:
   ``amodal_train.py:612-613``), or keeps the template's with a warning;
 - the pre-surgery 81-class ``mask_rcnn_coco.pth`` takes the four layers the
   reference re-creates after loading it (``amodal_train.py:606-610``) from
-  the template.
+  the template;
+- the refine head (``amodal_refine.*``, with ``use_refine_head``), which no
+  reference checkpoint holds, keeps the template's.
 
 Checkpoints the port writes are ``{log_dir}/{name}/sln_amodal_{name}_{epoch:04d}.pth``,
 and beside each, for a resume in the middle of a stage, ``<that>.state``
@@ -32,6 +34,7 @@ StateDict = Dict[str, torch.Tensor]
 CKPT_RE = re.compile(r"sln_amodal_(\w+)_(\d{4})\.pth$")
 
 GLM_PREFIX = "GLM_modual."
+REFINE_PREFIX = "amodal_refine."
 
 # The four modules the reference re-creates after loading mask_rcnn_coco.pth:
 # mask.conv1 (439 inputs), mask.conv5 and both classifier linears (2 classes).
@@ -129,6 +132,10 @@ def load_weights(path: str, template: Mapping[str, torch.Tensor],
                   "masks will not match the reference checkpoints.", file=sys.stderr)
             sd.update({k: v for k, v in template.items() if k.startswith(GLM_PREFIX)})
 
+    # a reference .pth has no refine head (the reference never builds it):
+    # the model's own, seeded, stays
+    sd.update({k: v for k, v in template.items()
+               if k.startswith(REFINE_PREFIX) and k not in sd})
     missing = sorted(set(template) - set(sd))
     if missing:
         raise KeyError(f"{path}: {len(missing)} keys of the model are missing, "

@@ -98,11 +98,17 @@ def _boxes(b, n, seed=1):
     return torch.from_numpy(boxes)
 
 
+def _box_dtype(dtype):
+    """The boxes' dtype for levels of ``dtype``: float32 for bfloat16 levels
+    (the model's), the levels' own otherwise."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def _level_boundary_boxes(dtype):
     """Square boxes whose sqrt(hw) is 224/1024 * 2^k (integer levels) or
     224/1024 * 2^(k + 1/2) (where round() turns), each also one ulp of the
     box dtype either side, on y2 and on x2."""
-    npdt = np.float64 if dtype == torch.float64 else np.float32
+    npdt = np.float64 if _box_dtype(dtype) == torch.float64 else np.float32
     sides = 224.0 / 1024.0 * 2.0 ** np.array([-2, -1.5, -1, -0.5, 0, 0.5, 1, 1.5, 2])
     rows = []
     for side in sides.astype(npdt):
@@ -147,15 +153,16 @@ def _roi_case(case, dtype):
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("case", ["pool7", "pool16", "level_boundaries", "integer_samples",
                                   "crop_1x1", "one_level", "two_levels", "three_levels",
                                   "outside", "empty"])
 def test_roi_align_kernel_matches_plain(cuda_device, dtype, case):
     """Exact: the kernel's own geometry equals sample_geometry on the card,
-    same lerp order, no contraction on either side."""
+    same lerp order, no contraction on either side (bfloat16 levels: both
+    interpolate in float32 and round once)."""
     feats, boxes, crop, image = _roi_case(case, dtype)
-    boxes = boxes.to(cuda_device, dtype)
+    boxes = boxes.to(cuda_device, _box_dtype(dtype))
     before = ROI_ALIGN_KERNEL.launches
     out = pyramid_roi_align(feats, boxes, crop, image)
     # one launch per call; none where there is no box
@@ -195,27 +202,35 @@ def test_roi_align_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     boxes = _boxes(1, 4).to(cuda_device, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         pyramid_roi_align([f.transpose(1, 2) for f in feats], boxes, (7, 7), (1024, 1024))
-    with pytest.raises(ValueError, match="float32 or float64"):
+    with pytest.raises(ValueError, match="float32, float64 or bfloat16"):
         pyramid_roi_align([f.half() for f in feats], boxes, (7, 7), (1024, 1024))
     with pytest.raises(ValueError, match="boxes must be float32 or float64"):
         pyramid_roi_align(feats, boxes.half(), (7, 7), (1024, 1024))
     with pytest.raises(ValueError, match="multiple of 4"):
         pyramid_roi_align([f[..., :6].contiguous() for f in feats], boxes, (7, 7), (1024, 1024))
+    # bfloat16 moves 8 channels per 16-byte vector
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pyramid_roi_align([f[..., :4].to(torch.bfloat16) for f in feats], boxes, (7, 7),
+                          (1024, 1024))
+    with pytest.raises(ValueError, match="one dtype"):
+        pyramid_roi_align([feats[0].to(torch.bfloat16)] + feats[1:], boxes, (7, 7),
+                          (1024, 1024))
 
 
 ROI_CASES = ["pool7", "pool16", "level_boundaries", "integer_samples", "crop_1x1",
              "one_level", "two_levels", "three_levels", "outside", "empty"]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("case", ROI_CASES)
 def test_roi_align_backward_kernel_matches_plain(cuda_device, dtype, case):
     """The backward kernel against the plain backward on the same card:
     within 1e-5 of the largest gradient (both sum in float32, in other
-    orders), one launch per call (none without boxes), bit-equal across
-    launches."""
+    orders; in bfloat16, where each sum is rounded once, within one
+    bfloat16 ulp of the largest gradient), one launch per call (none
+    without boxes), bit-equal across launches."""
     feats, boxes, crop, image = _roi_case(case, dtype)
-    boxes = boxes.to(cuda_device, dtype)
+    boxes = boxes.to(cuda_device, _box_dtype(dtype))
     b, n = boxes.shape[:2]
     g = torch.Generator().manual_seed(3)
     grad = torch.randn((b, n, *crop, feats[0].shape[-1]), generator=g).to(cuda_device, dtype)
@@ -227,10 +242,12 @@ def test_roi_align_backward_kernel_matches_plain(cuda_device, dtype, case):
     ref = pyramid_roi_align_backward_plain(grad, boxes, shapes, crop, image, dtype)
     torch.cuda.synchronize()
     scale = max(float(r.abs().max()) for r in ref) if n else 0.0
+    tol = (2.0 ** (math.floor(math.log2(max(scale, 1.0))) - 7) if dtype == torch.bfloat16
+           else 1e-5 * max(scale, 1.0))
     for o, a, r in zip(out, again, ref):
         assert o.shape == r.shape and o.dtype == dtype
         assert torch.equal(o, a)
-        assert float((o - r).abs().max()) <= 1e-5 * max(scale, 1.0)
+        assert float((o.float() - r.float()).abs().max()) <= tol
     if n == 0:
         assert all(float(o.abs().max()) == 0.0 for o in out)
 

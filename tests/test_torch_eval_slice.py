@@ -272,12 +272,24 @@ def test_evaluate_device_prep_runs_as_plain_evaluate(weights, reduced_cli, tmp_p
 
 
 def test_cli_defaults_float32_on_the_card():
+    """Both evaluation CLIs default to the card in the ``Config`` dtypes:
+    bfloat16 compute, float32 parameters (as the JAX package's CLIs)."""
     args = port_train.build_parser().parse_args(["evaluate", "--dataset", "d"])
     cfg = port_train.eval_config(args)
     assert args.device == "cuda" and args.eval_batch == 8
-    assert (cfg.compute_dtype, cfg.param_dtype) == ("float32", "float32")
-    assert cfg == Config(name="cocoa", batch_size=1, detection_min_confidence=0.0,
-                         compute_dtype="float32", param_dtype="float32")
+    assert (cfg.compute_dtype, cfg.param_dtype) == ("bfloat16", "float32")
+    assert cfg == Config(name="cocoa", batch_size=1, detection_min_confidence=0.0)
+    seen = {}
+
+    def stop_at_init(config, **kw):
+        seen["config"] = config
+        raise SystemExit(0)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_test_images, "init_params", stop_at_init)
+        with pytest.raises(SystemExit):
+            port_test_images.main(["--images", "d"])
+    assert (seen["config"].compute_dtype, seen["config"].param_dtype) == ("bfloat16", "float32")
 
 
 def test_port_imports_no_jax():

@@ -38,9 +38,9 @@ def test_ops_live_in_one_namespace():
         assert torch._C._dispatch_has_kernel_for_dispatch_key(op.name(), "CUDA")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 def test_gradient_through_the_op_is_the_plain_backward(dtype):
-    args, _ = SAMPLES["roi_align"][dtype == torch.float64]
+    args, _ = SAMPLES["roi_align"][[torch.float32, torch.float64, torch.bfloat16].index(dtype)]
     feats, boxes, crop, image, _ = args
     feats = [f.detach().clone().requires_grad_() for f in feats]
     out = pyramid_roi_align(feats, boxes, crop, image)

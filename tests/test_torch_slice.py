@@ -24,8 +24,9 @@ from sln_amodal_tpu.config import Config as JaxConfig
 from sln_amodal_tpu.infer import Detector as JaxDetector
 from sln_amodal_tpu.models.sln import init_params as jax_init
 from sln_amodal_tpu_torch.config import Config
-from sln_amodal_tpu_torch.convert import params_from_jax
+from sln_amodal_tpu_torch.convert import init_params, params_from_jax
 from sln_amodal_tpu_torch.infer import Detector
+from sln_amodal_tpu_torch.models.sln import SLNAmodal
 from torch_port_helpers import random_variables
 
 CFG = dict(image_size=64, backbone="resnet50", glm_input_size=33,
@@ -108,5 +109,17 @@ def test_entry_points_default_to_the_card():
 
 
 def test_bfloat16_compute_is_refused():
+    """An unknown dtype is refused; bfloat16 compute builds, with float32
+    parameters (bfloat16 parameters are refused)."""
     with pytest.raises(ValueError, match="not supported"):
-        Detector(Config(**dict(CFG, compute_dtype="bfloat16")), {}, device="cpu")
+        Detector(Config(**dict(CFG, compute_dtype="float16")), {}, device="cpu")
+    with pytest.raises(ValueError, match="param_dtype"):
+        SLNAmodal(Config(**dict(CFG, compute_dtype="bfloat16", param_dtype="bfloat16")),
+                  device="cpu")
+    cfg = Config(**dict(CFG, compute_dtype="bfloat16", param_dtype="float32"))
+    det = Detector(cfg, init_params(cfg, seed=0, device="cpu"), device="cpu")
+    assert det.model.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in det.model.parameters()} == {torch.bfloat16}
+    assert {b.dtype for b in det.model.buffers()} == {torch.float32}
+    model = SLNAmodal(cfg, device="cpu")
+    assert {p.dtype for p in model.parameters()} == {torch.float32}

@@ -40,6 +40,7 @@ from sln_amodal_tpu.models.sln import init_params as jax_init
 from sln_amodal_tpu.train import optim as jax_optim
 from sln_amodal_tpu.train.trainer import batched_losses as jax_batched_losses
 from sln_amodal_tpu.utils import synthetic as jax_synthetic
+from sln_amodal_tpu_torch.cli import export_model
 from sln_amodal_tpu_torch.cli import train as cli
 from sln_amodal_tpu_torch.config import Config
 from sln_amodal_tpu_torch.convert import params_from_jax
@@ -59,13 +60,14 @@ CFG = dict(image_size=64, backbone="resnet50", glm_input_size=17, pre_nms_limit=
 LR = 1e-3
 
 
-def shared_weights():
+def shared_weights(cfg_kwargs=CFG):
     """(JAX variables, the port's state_dict of the same weights): seeded
-    numpy variables under the RPN-biased recipe of each package."""
-    with jax.enable_x64(True):
-        cfg = JaxConfig(**CFG)
+    numpy variables under the RPN-biased recipe of each package, in the
+    parameter dtype of ``cfg_kwargs``."""
+    with jax.enable_x64(cfg_kwargs["param_dtype"] == "float64"):
+        cfg = JaxConfig(**cfg_kwargs)
         shapes = jax.eval_shape(lambda k: jax_init(cfg, k), jax.random.PRNGKey(0))
-        variables = random_variables(shapes, seed=1)
+        variables = random_variables(shapes, seed=1, dtype=np.dtype(cfg_kwargs["param_dtype"]))
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jax_synthetic, "init_params", lambda c, r: copy.deepcopy(variables))
             biased = jax_synthetic.rpn_biased_variables(cfg)
@@ -78,13 +80,13 @@ def shared():
     return (*shared_weights(), make_batch(Config(**CFG), 2, 0))
 
 
-def jax_reference_step(variables, batch, stages=("heads", "all")):
+def jax_reference_step(variables, batch, stages=("heads", "all"), cfg_kwargs=CFG):
     """The JAX step on ``batch`` (numpy): its losses, its updated parameters
     for each of ``stages`` (as reference state_dicts), its target-layer
     draws and its sampled class ids."""
     rng = jax.random.PRNGKey(7)
-    with jax.enable_x64(True):
-        cfg = JaxConfig(**CFG)
+    with jax.enable_x64(cfg_kwargs["param_dtype"] == "float64"):
+        cfg = JaxConfig(**cfg_kwargs)
         model = JaxModel(cfg)
 
         def loss_fn(params, rng, batch):      # make_train_step's loss_fn
@@ -107,7 +109,7 @@ def jax_reference_step(variables, batch, stages=("heads", "all")):
                 return optax.apply_updates(params, updates)
 
             updated[stage] = params_from_jax(update(grads, variables))
-        p = CFG["post_nms_rois_training"]
+        p = cfg.post_nms_rois_training
         pairs = [jax.random.split(k) for k in jax.random.split(rng, 2)]
         draws = tuple(torch.from_numpy(np.stack([np.asarray(jax.random.uniform(k[j], (p,)))
                                                  for k in pairs])) for j in (0, 1))
@@ -322,11 +324,25 @@ def test_accumulation_cut_between_micro_steps_resumes_equal(shared, logs):
 
 
 def test_train_defaults_to_the_card_in_float32():
+    """``train`` and ``export_model`` default to the card in the ``Config``
+    dtypes: bfloat16 compute, float32 parameters (the float32 master
+    weights the optimizer updates)."""
     args = cli.build_parser().parse_args(["train", "--dataset", "d"])
     cfg = cli.train_config(args)
-    assert args.device == "cuda" and (cfg.compute_dtype, cfg.param_dtype) == ("float32", "float32")
-    assert cfg == Config(name="cocoa", batch_size=1, steps_per_epoch=2500,
-                         compute_dtype="float32", param_dtype="float32")
+    assert args.device == "cuda" and (cfg.compute_dtype, cfg.param_dtype) == ("bfloat16", "float32")
+    assert cfg == Config(name="cocoa", batch_size=1, steps_per_epoch=2500)
+    seen = {}
+
+    def stop_at_init(config, **kw):
+        seen["config"], seen["device"] = config, kw["device"]
+        raise SystemExit(0)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(export_model, "init_params", stop_at_init)
+        with pytest.raises(SystemExit):
+            export_model.main(["--model", "random", "--out", "d"])
+    assert (seen["config"].compute_dtype, seen["config"].param_dtype) == ("bfloat16", "float32")
+    assert seen["device"] == "cuda"
 
 
 def test_training_modules_import_no_jax():

@@ -42,7 +42,8 @@ def random_variables(shapes, seed=0, dtype=np.float64):
 def library_op_samples(device, seed=0):
     """{op name: [(args, kwargs), ...]}: inputs of each custom op of
     ``ops/library.py`` on ``device`` for ``torch.library.opcheck`` (small
-    shapes; RoIAlign levels that require a gradient, float32 and float64)."""
+    shapes; RoIAlign levels that require a gradient, float32, float64 and
+    bfloat16)."""
     rng = np.random.RandomState(seed)
     gen = torch.Generator().manual_seed(seed)
 
@@ -65,12 +66,20 @@ def library_op_samples(device, seed=0):
            ((boxes_px(1, 70).double().to(device), torch.ones((1, 70), dtype=torch.bool,
                                                              device=device),
              80, 0.3, True, -1), {})]
-    roi = [((levels(2, 8, dtype, True), boxes_norm(2, 12, dtype), [5, 5], [128, 128], 0.0), {})
-           for dtype in (torch.float32, torch.float64)]
-    backward = [((torch.randn((2, 12, 5, 5, 8), generator=gen, dtype=dtype).to(device),
-                  boxes_norm(2, 12, dtype), [32, 16, 8, 4], [32, 16, 8, 4], [5, 5], [128, 128],
-                  dtype), {})
-                for dtype in (torch.float32, torch.float64)]
+    def roi_case(dtype, box_dtype):
+        return ((levels(2, 8, dtype, True), boxes_norm(2, 12, box_dtype), [5, 5], [128, 128],
+                 0.0), {})
+
+    def backward_case(dtype, box_dtype):
+        return ((torch.randn((2, 12, 5, 5, 8), generator=gen, dtype=dtype).to(device),
+                 boxes_norm(2, 12, box_dtype), [32, 16, 8, 4], [32, 16, 8, 4], [5, 5],
+                 [128, 128], dtype), {})
+
+    roi = [roi_case(dtype, dtype) for dtype in (torch.float32, torch.float64)]
+    backward = [backward_case(dtype, dtype) for dtype in (torch.float32, torch.float64)]
+    # bfloat16 levels with float32 boxes (the model's)
+    roi.append(roi_case(torch.bfloat16, torch.float32))
+    backward.append(backward_case(torch.bfloat16, torch.float32))
     return {"nms_sorted_batched": nms, "roi_align": roi, "roi_align_backward": backward}
 
 
