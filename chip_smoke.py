@@ -24,10 +24,16 @@ Phases (each prints one JSON line):
    wrapper's host time per call, enqueued back to back. The RoIAlign
    kernel in float32 and in bfloat16 (bfloat16 levels, float32 boxes: bit
    for bit too; its bound counts 2-byte features). The RoIAlign backward
-   kernel at the train step's shapes (batch 2, 100 ROIs per image, pools 7
-   and 16) against the plain backward on the card, in float32 within 1e-5
-   of the largest gradient, in bfloat16 within one bfloat16 ulp of it, and
-   two launches bit-equal.
+   at the train step's shapes (batch 2, 100 ROIs per image, pools 7 and 16)
+   in three layouts (boxes spread over the image, clustered on a few rows,
+   and "sampled": 30 clustered and 70 all-zero rows per image, as the step
+   pads them; the summary line is the sampled one's) against the plain
+   backward on the card, in float32 within 1e-5 of the largest gradient, in
+   bfloat16 within one bfloat16 ulp of it, and two launches bit-equal; each
+   op call launches each of its two kernels (``roi_align_backward_fold``,
+   ``roi_align_backward_gather``) exactly once. Per layout it prints the
+   serial work the layout asks: the most (ROI, row sample) entries on one
+   output row and the most ROIs covering one cell.
 4. main path — ``Detector.detect`` on 2 seeded 1024² images at the full
    width of the one supported model (ResNet-101-FPN, DeepLabV2-MSC GLM at
    513², 6000 -> 1000 proposals, 100 detections), random seeded weights,
@@ -66,8 +72,10 @@ Phases (each prints one JSON line):
    and the last three, images/s, loader wait per step, busy share of the
    last three steps under ``torch.profiler``, peak
    memory, first and last losses (finite), positive
-   ROIs per step (> 0) and launches per step (NMS 1, RoIAlign 2, backward
-   2). ``evaluate`` then loads the saved checkpoint on 8 of the images and
+   ROIs per step (> 0), the mean of the valid (not padding) sampled ROIs
+   per step, and launches per step (NMS 1, RoIAlign 2, backward 2; the
+   backward's device ms in the profiled steps is its two kernels').
+   ``evaluate`` then loads the saved checkpoint on 8 of the images and
    must detect.
 
 10. device_prep — the on-device training targets (``data/device_prep.py``) on
@@ -368,73 +376,161 @@ def clustered_boxes(rng, b, n, image=1024.0):
     return torch.from_numpy(np.clip(boxes, 0, image).astype(np.float32) / image)
 
 
-def check_roi_align_backward(dev, b, dtype=torch.float32):
-    """The RoIAlign backward kernel's ``dtype`` instantiation at the train
-    step's shapes (1024² pyramid, C=256, 100 sampled ROIs per image, pools
-    7 and 16) against the plain backward on the card, and two launches
-    bit-equal; with boxes spread over the image and with boxes clustered on
-    a few rows as the train phase's are (the summary line is the clustered
-    one's). Both sum in float32, in other orders: float32 gradients agree
-    within 1e-5 of the largest gradient, bfloat16 ones (each sum rounded
-    once) within one bfloat16 ulp of the largest gradient."""
-    from sln_amodal_tpu_torch.ops.roi_align import pyramid_roi_align_backward_plain
-    from sln_amodal_tpu_torch.ops.roi_align_cuda import pyramid_roi_align_backward
+BACKWARD_LAYOUTS = ("spread", "clustered", "sampled")
+BACKWARD_KERNELS = ("roi_align_backward_fold", "roi_align_backward_gather")
 
+
+def backward_cases(dev, b, dtype):
+    """(layout, pool, wrapper args) of the RoIAlign backward at the train
+    step's shapes (1024² pyramid, C=256, 100 ROIs per image, pools 7 and
+    16): boxes spread over the image; clustered on a few rows as the train
+    phase's ground truth sits; and "sampled" as the step sends them, 30
+    clustered ROIs per image and 70 all-zero rows, the padding of
+    ``detect/targets.py``. The cotangent is random and nonzero everywhere,
+    padded rows too."""
     gen = torch.Generator().manual_seed(4)
     c, n = 256, 100
     shapes = [(s, s, c) for s in (256, 128, 64, 32)]
     rng = np.random.RandomState(5)
+    for layout in BACKWARD_LAYOUTS:
+        for pool in (7, 16):
+            if layout == "spread":
+                boxes = roi_boxes(rng, b, n)
+            elif layout == "clustered":
+                boxes = clustered_boxes(rng, b, n)
+            else:
+                boxes = torch.zeros((b, n, 4))
+                boxes[:, :30] = clustered_boxes(rng, b, 30)
+            grad = torch.randn((b, n, pool, pool, c), generator=gen).to(dev, dtype)
+            yield layout, pool, (grad, boxes.to(dev), shapes, (pool, pool), (1024, 1024), dtype)
+
+
+def backward_chains(boxes, shapes, pool) -> dict:
+    """The serial work the layout asks of a backward: the most (ROI, row
+    sample) entries on one output row, and the most ROIs covering one output
+    cell (both over every image and level), from the plain sample_geometry."""
+    from sln_amodal_tpu_torch.ops.roi_align import sample_geometry
+
+    b, n = boxes.shape[:2]
+    (lvl, vy, vx, top, bottom, _, left, right, _) = [
+        t.cpu() for t in sample_geometry(shapes, boxes.reshape(-1, 4), (pool, pool),
+                                         (1024, 1024))]
+    entries, covers = 0, 0
+    for level, (hl, wl, _) in enumerate(shapes):
+        for img in range(b):
+            rois = [r for r in range(img * n, (img + 1) * n) if int(lvl[r]) == level]
+            per_row = torch.zeros(hl, dtype=torch.int64)
+            per_cell = torch.zeros((hl, wl), dtype=torch.int64)
+            for r in rois:
+                ys = torch.cat([top[r][vy[r]], bottom[r][vy[r]]]).long()
+                xs = torch.cat([left[r][vx[r]], right[r][vx[r]]]).long()
+                lo, hi = top[r][vy[r]].long(), bottom[r][vy[r]].long()
+                per_row.index_add_(0, lo, torch.ones_like(lo))
+                # a sample with top == bottom is one entry of its row
+                per_row.index_add_(0, hi[hi != lo], torch.ones_like(hi[hi != lo]))
+                rows = torch.zeros(hl, dtype=torch.bool)
+                cols = torch.zeros(wl, dtype=torch.bool)
+                rows[ys] = True
+                cols[xs] = True
+                per_cell += (rows[:, None] & cols[None, :]).long()
+            entries = max(entries, int(per_row.max()))
+            covers = max(covers, int(per_cell.max()))
+    return {"max_entries_per_row": entries, "max_rois_per_cell": covers}
+
+
+def backward_kernel_ms(by_kernel) -> dict:
+    """{kernel: (device ms, launches) per call} of the RoIAlign backward's
+    kernels among ``device_kernels``' output."""
+    return {k: v for k, v in by_kernel.items() if "roi_align_backward" in k}
+
+
+def backward_device_ms(dev, dtype=torch.float32) -> dict:
+    """Device ms per call of whichever ``sln_amodal_tpu_torch`` is imported,
+    per (layout, pool) of :func:`backward_cases`, with no check. ``python3
+    <this file> backward_device_ms`` run from the root of another checkout
+    (another commit's, for one) times that checkout's backward on the same
+    inputs as the kernel check, in bfloat16 and float32."""
+    from sln_amodal_tpu_torch.ops.roi_align_cuda import pyramid_roi_align_backward
+
+    out = {}
+    for layout, pool, args in backward_cases(dev, 2, dtype):
+        ours = backward_kernel_ms(device_kernels(lambda: pyramid_roi_align_backward(*args), 10))
+        out[f"{layout}_{pool}"] = {"device_ms": sum(t for t, _ in ours.values()),
+                                   "kernels": ours}
+    emit({"phase": "backward_device_ms", "dtype": str(dtype), **out})
+    return out
+
+
+def check_roi_align_backward(dev, b, dtype=torch.float32):
+    """The RoIAlign backward kernels' ``dtype`` instantiation in every layout
+    of :func:`backward_cases` against the plain backward on the card, and two
+    launches bit-equal. Both sum in float32, in other orders: float32
+    gradients agree within 1e-5 of the largest gradient, bfloat16 ones (each
+    sum rounded once) within one bfloat16 ulp of the largest gradient. Each
+    op call launches each of the two kernels (``roi_align_backward_fold``,
+    then ``roi_align_backward_gather``) exactly once and nothing else of
+    its own. One summary line per layout (pools 7 + 16); the returned one,
+    the table's, is the "sampled" layout's, as the train step sends it."""
+    from sln_amodal_tpu_torch.ops.roi_align import pyramid_roi_align_backward_plain
+    from sln_amodal_tpu_torch.ops.roi_align_cuda import pyramid_roi_align_backward
+
     per_shape = []
-    for layout, pool in (("spread", 7), ("spread", 16), ("clustered", 7), ("clustered", 16)):
-        make = roi_boxes if layout == "spread" else clustered_boxes
-        boxes = make(rng, b, n).to(dev)
-        grad = torch.randn((b, n, pool, pool, c), generator=gen).to(dev, dtype)
-        args = (grad, boxes, shapes, (pool, pool), (1024, 1024), dtype)
+    for layout, pool, args in backward_cases(dev, b, dtype):
+        grad, boxes, shapes = args[:3]
+        n = boxes.shape[1]
         out = pyramid_roi_align_backward(*args)
         again = pyramid_roi_align_backward(*args)
         ref = pyramid_roi_align_backward_plain(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(o, a) for o, a in zip(out, again)):
-            raise AssertionError(f"RoIAlign backward pool {pool}: two launches differ")
+            raise AssertionError(f"RoIAlign backward {layout} pool {pool}: two launches differ")
         scale = max(float(r.abs().max()) for r in ref)
         err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
         tol = (1e-5 * scale if dtype == torch.float32
                else 2.0 ** (math.floor(math.log2(scale)) - 7))
         if err > tol:
-            raise AssertionError(f"RoIAlign backward {dtype} pool {pool}: max |diff| {err} "
-                                 f"beyond {tol} (largest gradient {scale})")
+            raise AssertionError(f"RoIAlign backward {dtype} {layout} pool {pool}: max |diff| "
+                                 f"{err} beyond {tol} (largest gradient {scale})")
         ms = cuda_ms(lambda: pyramid_roi_align_backward(*args), 20)
         plain_ms = cuda_ms(lambda: pyramid_roi_align_backward_plain(*args), 3)
         by_kernel = device_kernels(lambda: pyramid_roi_align_backward(*args), 10)
-        kernel_launches = {k: v for k, v in by_kernel.items() if "roi_align_backward" in k}
-        if [n_ for _, n_ in kernel_launches.values()] != [1]:
+        kernel_launches = backward_kernel_ms(by_kernel)
+        per_kernel = {k: [v for name, v in kernel_launches.items() if k in name]
+                      for k in BACKWARD_KERNELS}
+        if (any(len(v) != 1 or v[0][1] != 1 for v in per_kernel.values())
+                or len(kernel_launches) != len(BACKWARD_KERNELS)):
             raise AssertionError(f"RoIAlign backward wrapper launches {by_kernel}")
         # what the function must move: every level's gradient written whole,
         # the cotangent read once, the boxes once
         elem = grad.element_size()
-        nbytes = sum(b * h * w * c * elem for h, w, _ in shapes) + grad.numel() * elem + b * n * 16
+        nbytes = sum(b * h * w * c * elem for h, w, c in shapes) + grad.numel() * elem + b * n * 16
         # per cotangent element: two rows, two corners, two products and an add
         bound_ms, bound_by = bound(nbytes, 12 * grad.numel())
         shape = dict(dtype=str(dtype), layout=layout, pool=pool, n=n, max_abs_err=err,
                      tolerance=tol, max_rel_err=err / scale,
                      deterministic=True, ms=ms, plain_ms=plain_ms,
                      device_ms=sum(t for t, _ in kernel_launches.values()),
+                     kernel_ms={k: v[0][0] for k, v in per_kernel.items()},
                      other_device_ms=sum(t for k, (t, _) in by_kernel.items()
                                          if k not in kernel_launches),
                      host_us=host_us(lambda: pyramid_roi_align_backward(*args), 30),
-                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                     **backward_chains(boxes, shapes, pool))
         emit({"phase": "kernel", "name": "roi_align_backward", "batch": b, **shape})
         per_shape.append(shape)
-    clustered = [s for s in per_shape if s["layout"] == "clustered"]
-    total = {k: sum(s[k] for s in clustered)
-             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "host_us")}
-    total.update(max_abs_err=max(s["max_abs_err"] for s in per_shape),
-                 max_rel_err=max(s["max_rel_err"] for s in per_shape),
-                 bound_by="bytes" if all(s["bound_by"] == "bytes" for s in clustered)
-                 else "operations")
-    emit({"phase": "kernel", "name": "roi_align_backward", "batch": b, "dtype": str(dtype),
-          "layout": "clustered", "pools": "7+16", **total})
-    return total
+    summaries = {}
+    for layout in BACKWARD_LAYOUTS:
+        rows = [s for s in per_shape if s["layout"] == layout]
+        total = {k: sum(s[k] for s in rows)
+                 for k in ("ms", "device_ms", "plain_ms", "bound_ms", "host_us")}
+        total.update(max_abs_err=max(s["max_abs_err"] for s in rows),
+                     max_rel_err=max(s["max_rel_err"] for s in rows),
+                     bound_by="bytes" if all(s["bound_by"] == "bytes" for s in rows)
+                     else "operations")
+        emit({"phase": "kernel", "name": "roi_align_backward", "batch": b, "dtype": str(dtype),
+              "layout": layout, "pools": "7+16", **total})
+        summaries[layout] = total
+    return dict(summaries["sampled"], layouts=summaries)
 
 
 def main_path(dev, dtype="float32"):
@@ -1010,7 +1106,8 @@ def convergence(dev, tmp, steps=150):
 def timed_train(trainer_mod, cli, kernels, profile_last):
     """Records, per train step of ``cli.train``'s loop: host wall ms (the
     step ends in a synchronize), the CUDA events' device span, the losses,
-    the positive ROIs, each kernel's launches, the caching allocator's
+    the positive and the valid (not padding) sampled ROIs, each kernel's
+    launches, the caching allocator's
     ``cudaMalloc`` calls, and the loader's wait; per sample, the host ms of
     the loader's worker threads (``_make_one_sample``), and per batch of a
     ``DevicePrepLoader``, the host ms of its prefetch thread (``_prepare``:
@@ -1020,14 +1117,15 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
     of the timings."""
     from torch.profiler import ProfilerActivity, profile
 
-    rec = {"steps": [], "loader_wait_ms": [], "positives": [], "stages": [], "loaders": [],
-           "sample_ms": [], "prepare_ms": []}
+    rec = {"steps": [], "loader_wait_ms": [], "positives": [], "valid_rois": [], "stages": [],
+           "loaders": [], "sample_ms": [], "prepare_ms": []}
     step_fn, losses_fn = trainer_mod.train_step, trainer_mod.batched_losses
     loader_classes = (cli.TrainLoader, cli.DevicePrepLoader)
     state = {"n": 0, "total": 0, "prof": None}
 
     def batched_losses(out, batch):
         rec["positives"].append(out.targets.positive.sum())
+        rec["valid_rois"].append(out.targets.valid.sum())
         return losses_fn(out, batch)
 
     def train_step(model, optimizer, batch, generator=None, uniforms=None):
@@ -1049,6 +1147,7 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
                                      "num_device_alloc", 0) - mallocs,
                                  losses={k: float(v) for k, v in losses.items()},
                                  positives=int(rec["positives"][-1]),
+                                 valid_rois=int(rec["valid_rois"][-1]),
                                  launches=[k.launches - b for k, b in zip(kernels, before)],
                                  profiled=state["prof"] is not None))
         state["n"] += 1
@@ -1093,9 +1192,10 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
         spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
                  if e.device_type == DeviceType.CUDA and "Memcpy" not in e.name
                  and "Memset" not in e.name]
+        # the backward's kernels by their common prefix (its fold and gather)
         ours = {k: sum(ms for name, ms in spans if k in name)
                 for k in ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel",
-                          "roi_align_backward_kernel")}
+                          "roi_align_backward_")}
         runtime = {}
         for e in prof.events():
             if e.device_type != DeviceType.CUDA and e.name.startswith("cuda"):
@@ -1238,6 +1338,8 @@ def run_train_stages(dev, runs, common):
                 first_losses=steps_rec[0]["losses"], last_losses=steps_rec[-1]["losses"],
                 total_loss_by_step=losses,
                 positives_per_step=[s["positives"] for s in steps_rec],
+                # the sampled ROIs that are not padding, of 100 per image
+                valid_rois_per_step_mean=statistics.mean(s["valid_rois"] for s in steps_rec),
                 launches_per_step=dict(zip(KERNEL_NAMES, steps_rec[-1]["launches"])),
                 launches=dict(zip(KERNEL_NAMES, np.sum([s["launches"] for s in steps_rec],
                                                        0).tolist())))
@@ -2340,6 +2442,10 @@ def main() -> int:
                                  "data_parallel_serving": dp["serving_launches"][key],
                                  "serving": srv["launches"][key]},
             "dtype": "float32 boxes" if k32 is None else "bfloat16",
+            # the backward's times are the "sampled" layout's, the others' beside
+            **({"layout": "sampled",
+                "device_ms_by_layout": {name: v["device_ms"] for name, v in k["layouts"].items()}}
+               if "layouts" in k else {}),
             "batch": batch, **timing(k), "library_ms": None,
             "float32": None if k32 is None else timing(k32)})
     emit({"kernels": kernels})
@@ -2354,4 +2460,11 @@ if __name__ == "__main__":
         sys.exit(data_parallel_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["serving_worker"]:
         sys.exit(serving_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["backward_device_ms"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        sys.path.insert(0, os.getcwd())  # the package of the working directory's checkout
+        for dtype in (torch.bfloat16, torch.float32):
+            backward_device_ms(torch.device("cuda", 0), dtype)
+        sys.exit(0)
     sys.exit(main())

@@ -12,15 +12,17 @@ second):
   to the plain version :func:`.roi_align.pyramid_roi_align_plain`;
 - backward (the JAX package's custom VJP, ``ops/roi_align.py:650-673``): a
   CUDA tensor goes to :func:`launch_roi_align_backward`, the deterministic
-  kernel ``csrc/roi_align_backward.cu``, a CPU tensor to
+  kernels of ``csrc/roi_align_backward.cu`` (a per-ROI fold of the
+  cotangent, then a per-row gather of the folded patches), a CPU tensor to
   :func:`.roi_align.pyramid_roi_align_backward_plain`; the boxes get no
   gradient (the JAX VJP gives zeros, and the model detaches the ROIs).
 
-There is no fallback from a kernel to its plain version. Both kernels
+There is no fallback from a kernel to its plain version. The kernels
 compute their own sampling geometry from the boxes (the plain version's
 :func:`.roi_align.sample_geometry`, bit for bit as the card computes it,
-from the shared ``csrc/roi_align_geometry.cuh``), so each call is one launch
-and the launch function adds only its checks and the outputs' allocation.
+from the shared ``csrc/roi_align_geometry.cuh``), so the forward is one
+launch and the backward two, and the launch functions add only their
+checks and the allocation of the outputs and of the backward's workspace.
 Under ``torch.no_grad``, or when no level requires a gradient, the forward
 is the one launch and nothing is saved for a backward.
 """
@@ -45,16 +47,23 @@ ROI_ALIGN_KERNEL = CudaKernel("roi_align.cu", {
 ROI_ALIGN_BACKWARD_KERNEL = CudaKernel("roi_align_backward.cu", {
     "roi_align_backward_batched": (VOIDP, VOIDP, VOIDP, INT, INT, INT, INT, INT, INT,
                                    VOIDP, INT, DOUBLE, FLOAT, FLOAT, VOIDP, INT, INT,
-                                   INT, VOIDP),
+                                   INT, INT, INT, VOIDP, VOIDP, VOIDP),
 })
 
 MAX_LEVELS = 4
 # the kernels' feature dtype codes (csrc/roi_align_geometry.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
-# the backward kernel's block: 256 threads, one row buffer of float32
-# [widest level, channel chunk] in shared memory, ROIs scanned 256 at a time
+# the backward kernels' blocks: 256 threads; the dynamic shared memory of
+# one block (the fold's [ch, 2 cw, chunk] float32 x-fold and its taps, the
+# gather's [widest level, chunk] float32 row) stays under this, within the
+# 227 KB a block may take beside the kernels' few KB of static arrays
 BACKWARD_THREADS = 256
-BACKWARD_SMEM_BYTES = 160 * 1024
+BACKWARD_SMEM_BYTES = 200 * 1024
+# the gather's block: the columns of one row it writes, and the column
+# slots (a chunk of float32 channels and its column each) it stages in
+# shared memory at a time
+BACKWARD_TILE = 128
+BACKWARD_STAGE_SLOTS = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,19 +142,41 @@ def launch_roi_align(
     return out
 
 
-def backward_chunk(c: int, w_max: int, ch: int, cw: int) -> Tuple[int, int]:
-    """(channels per block, ROIs per scan pass) of the backward kernel: up to
-    64 channels (a power of two dividing the block), halved until the row
-    buffer, the column taps and the pass's entries fit the shared memory."""
-    rois = max(1, min(BACKWARD_THREADS, 4096 // max(ch, 1)))
-    chunk = min(64, 1 << max(0, (c - 1).bit_length()))
-    fixed = cw * 16 + rois * 12 + rois * ch * 8
-    while chunk > 1 and w_max * chunk * 4 + fixed > BACKWARD_SMEM_BYTES:
-        chunk //= 2
-    if w_max * chunk * 4 + fixed > BACKWARD_SMEM_BYTES:
-        raise ValueError(f"a level {w_max} wide with crop {ch}x{cw} does not fit the "
-                         "backward kernel's shared memory")
-    return chunk, rois
+def backward_sizing(c: int, ch: int, cw: int,
+                    dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """(fold channels per block, gather channels per block, gather tile
+    columns, gather stage slots) of the backward kernels. The chunks are
+    powers of two, multiples of the 16-byte vector's channels, up to 32
+    (fold) and 64 (gather), halved until the fold's x-fold buffer ([ch, 2 cw,
+    chunk] float32) and the gather's tile and stage ([tile + stage slots,
+    chunk] float32 and the slots' columns) fit ``BACKWARD_SMEM_BYTES``."""
+    if 2 * (ch + cw) > BACKWARD_THREADS:
+        raise ValueError(f"crop {ch}x{cw}: the backward kernel takes ch + cw <= "
+                         f"{BACKWARD_THREADS // 2}")
+    vec = 16 // dtype.itemsize
+    widest = 1 << max(0, (c - 1).bit_length())
+    tile, slots = BACKWARD_TILE, BACKWARD_STAGE_SLOTS
+
+    def fit(limit, nbytes):
+        chunk = max(vec, min(limit, widest))
+        while chunk > vec and nbytes(chunk) > BACKWARD_SMEM_BYTES:
+            chunk //= 2
+        if nbytes(chunk) > BACKWARD_SMEM_BYTES:
+            raise ValueError(f"crop {ch}x{cw} does not fit the backward kernels' shared "
+                             "memory")
+        return chunk
+
+    fold = fit(32, lambda k: ch * 2 * cw * k * 4)
+    gather = fit(64, lambda k: (tile + slots) * k * 4 + slots * 4)
+    return fold, gather, tile, slots
+
+
+def backward_workspace_bytes(b: int, n: int, c: int, ch: int, cw: int) -> Tuple[int, int]:
+    """(metadata, patch) bytes of the backward kernels' workspace: per ROI a
+    16-byte header and its row and column lists (int32), and its folded
+    cotangent at every (row slot, column slot) a ROI may touch (2 ch x 2 cw
+    x C float32), of which only the touched slots are written and read."""
+    return b * n * (4 + 2 * ch + 2 * cw) * 4, b * n * 2 * ch * 2 * cw * c * 4
 
 
 def launch_roi_align_backward(
@@ -157,9 +188,11 @@ def launch_roi_align_backward(
     image_shape: Sequence[int],
     dtype: torch.dtype,
 ) -> List[torch.Tensor]:
-    """The backward kernel on CUDA tensors (the op's CUDA implementation):
+    """The backward kernels on CUDA tensors (the op's CUDA implementation):
     the gradient into each level, [B, H_l, W_l, C] of ``dtype``, from grad
-    [B, N, ch, cw, C]; deterministic (bit-equal across launches)."""
+    [B, N, ch, cw, C]; checks, the outputs and the workspace, then the fold
+    and the gather launched in one call; deterministic (bit-equal across
+    launches)."""
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
     b, n = boxes.shape[:2]
@@ -178,10 +211,14 @@ def launch_roi_align_backward(
             g.zero_()
         return grads
     grad = grad.contiguous()
-    if grad.data_ptr() % 16:
-        raise ValueError("grad must be 16-byte aligned")
     boxes = boxes.contiguous()
-    chunk, rois = backward_chunk(c, max(widths), ch, cw)
+    fold_chunk, gather_chunk, tile, stage_slots = backward_sizing(c, ch, cw, dtype)
+    # the workspace, uninitialised: the fold writes every slot the gather reads
+    meta_bytes, patch_bytes = backward_workspace_bytes(b, n, c, ch, cw)
+    meta = torch.empty(meta_bytes // 4, dtype=torch.int32, device=boxes.device)
+    patch = torch.empty(patch_bytes // 4, dtype=torch.float32, device=boxes.device)
+    if any(t.data_ptr() % 16 for t in (grad, meta, patch)):
+        raise ValueError("grad and the workspace must be 16-byte aligned")
     ptrs = (ctypes.c_void_p * MAX_LEVELS)(*[g.data_ptr() for g in grads])
     c_heights = (ctypes.c_int * MAX_LEVELS)(*[int(h) for h in heights])
     c_widths = (ctypes.c_int * MAX_LEVELS)(*[int(w) for w in widths])
@@ -190,7 +227,8 @@ def launch_roi_align_backward(
         ctypes.addressof(c_heights), ctypes.addressof(c_widths), len(grads), c, b, n,
         ch, cw, boxes.data_ptr(), int(boxes.dtype == torch.float64),
         level_scale_reciprocal(tuple(image_shape), boxes.dtype), _step_reciprocal(ch),
-        _step_reciprocal(cw), grad.data_ptr(), DTYPE_CODES[dtype], chunk, rois)
+        _step_reciprocal(cw), grad.data_ptr(), DTYPE_CODES[dtype], fold_chunk, gather_chunk,
+        tile, stage_slots, meta.data_ptr(), patch.data_ptr())
     ROI_ALIGN_BACKWARD_KERNEL.launches += 1
     return grads
 

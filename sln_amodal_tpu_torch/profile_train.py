@@ -14,7 +14,8 @@ heads. Prints one JSON line per stage ("heads", "all"):
   optimizer, with CUDA events between them), of the batch's upload, and of
   the whole ``trainer.train_step`` (to ``synchronize``);
 - ``kernels``: device time by kernel over one step from ``torch.profiler``,
-  the largest first (the RoIAlign backward kernel's line among them), and
+  the largest first (the RoIAlign backward's two kernels among them, under
+  their common prefix ``roi_align_backward_``), and
   the device's busy share of the step's span.
 
 Needs a card; there is no CPU fallback.
@@ -158,7 +159,7 @@ def main() -> int:
             stages["train_step_to_sync"].append((time.perf_counter() - t) * 1e3)
         torch.cuda.reset_peak_memory_stats(dev)
         kernels = kernel_times(lambda: train_step(model, optimizer, batch, generator),
-                               match=("roi_align_backward_kernel", "roi_align_kernel",
+                               match=("roi_align_backward_", "roi_align_kernel",
                                       "nms_mask_kernel", "nms_scan_kernel"))
         print(json.dumps({"stage": stage, "batch": args.batch, "repeats": args.repeats,
                           "stages": {k: statistics.median(v) for k, v in stages.items()},

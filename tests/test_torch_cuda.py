@@ -150,13 +150,31 @@ def _roi_case(case, dtype):
                 (7, 7), image)
     if case == "empty":
         return _pyramid(2, 256, dtype), torch.zeros((2, 0, 4), dtype=torch.float64), (7, 7), image
+    if case == "padded":
+        # as the train step samples: 30 real ROIs per image, 70 all-zero rows
+        # (every sample of a zero box on cell (0, 0) of P2)
+        boxes = _boxes(2, 100)
+        boxes[:, 30:] = 0.0
+        return _pyramid(2, 256, dtype), boxes, (16, 16), image
+    if case == "crowded":
+        # 100 small boxes on at most 4 rows of P2 (rows 9-12 of 256)
+        rng = np.random.RandomState(7)
+        y1 = rng.uniform(10 / 256, 10.5 / 256, (2, 100))
+        x1 = rng.uniform(0.0, 0.9, (2, 100))
+        h = rng.uniform(0.2 / 256, 1.0 / 256, (2, 100))
+        w = rng.uniform(0.01, 0.1, (2, 100))
+        boxes = np.stack([y1, x1, y1 + h, x1 + w], axis=-1)
+        return _pyramid(2, 256, dtype), torch.from_numpy(boxes), (7, 7), image
     raise ValueError(case)
 
 
+ROI_CASES = ["pool7", "pool16", "level_boundaries", "integer_samples", "crop_1x1",
+             "one_level", "two_levels", "three_levels", "outside", "empty", "padded",
+             "crowded"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
-@pytest.mark.parametrize("case", ["pool7", "pool16", "level_boundaries", "integer_samples",
-                                  "crop_1x1", "one_level", "two_levels", "three_levels",
-                                  "outside", "empty"])
+@pytest.mark.parametrize("case", ROI_CASES)
 def test_roi_align_kernel_matches_plain(cuda_device, dtype, case):
     """Exact: the kernel's own geometry equals sample_geometry on the card,
     same lerp order, no contraction on either side (bfloat16 levels: both
@@ -217,18 +235,14 @@ def test_roi_align_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                           (1024, 1024))
 
 
-ROI_CASES = ["pool7", "pool16", "level_boundaries", "integer_samples", "crop_1x1",
-             "one_level", "two_levels", "three_levels", "outside", "empty"]
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("case", ROI_CASES)
 def test_roi_align_backward_kernel_matches_plain(cuda_device, dtype, case):
-    """The backward kernel against the plain backward on the same card:
+    """The backward kernels against the plain backward on the same card:
     within 1e-5 of the largest gradient (both sum in float32, in other
     orders; in bfloat16, where each sum is rounded once, within one
-    bfloat16 ulp of the largest gradient), one launch per call (none
-    without boxes), bit-equal across launches."""
+    bfloat16 ulp of the largest gradient), one counted launch per call
+    (none without boxes), bit-equal across launches."""
     feats, boxes, crop, image = _roi_case(case, dtype)
     boxes = boxes.to(cuda_device, _box_dtype(dtype))
     b, n = boxes.shape[:2]

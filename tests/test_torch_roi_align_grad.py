@@ -14,7 +14,8 @@
   backward, no gradient into the boxes, and nothing recorded under
   ``no_grad``.
 
-The kernel's own checks are card tests (``tests/test_torch_cuda.py``).
+The kernel's own checks are card tests (``tests/test_torch_cuda.py``);
+its launch sizing (chunks, tile, stage, workspace) is held here.
 """
 
 import numpy as np
@@ -27,7 +28,9 @@ import jax.numpy as jnp
 from sln_amodal_tpu.ops.roi_align import pyramid_roi_align_batched
 from sln_amodal_tpu_torch.ops.roi_align import (pyramid_roi_align_backward_plain,
                                                 pyramid_roi_align_plain)
-from sln_amodal_tpu_torch.ops.roi_align_cuda import pyramid_roi_align
+from sln_amodal_tpu_torch.ops.roi_align_cuda import (BACKWARD_SMEM_BYTES, backward_sizing,
+                                                     backward_workspace_bytes,
+                                                     pyramid_roi_align)
 
 IMAGE = (256, 256)
 
@@ -77,6 +80,31 @@ def test_plain_backward_matches_jax_vjp(seed, crop, sizes):
         torch.from_numpy(grad), torch.from_numpy(boxes), [f.shape[1:] for f in feats],
         crop, IMAGE, torch.float32)
     assert max(float(np.abs(r).max()) for r in ref) > 0
+    for g, r, m in zip(got, ref, magnitude):
+        assert g.dtype == torch.float32 and tuple(g.shape) == r.shape
+        assert np.all(np.abs(g.numpy() - r) <= 1e-6 * m)
+
+
+def test_plain_backward_matches_jax_vjp_padded_and_crowded():
+    """The ROIs as the train step samples them: per image 10 small boxes on
+    at most 4 rows of P2 and 14 all-zero rows (the padding of
+    ``detect/targets.py``: every sample of a zero box lands on cell (0, 0)
+    of P2), with a nonzero cotangent everywhere."""
+    feats, _, grad = make_case(11, n=24, crop=(16, 16))
+    rng = np.random.RandomState(11)
+    boxes = np.zeros((2, 24, 4), np.float32)
+    y1 = rng.uniform(10 / 64, 10.5 / 64, (2, 10))
+    x1 = rng.uniform(0.0, 0.8, (2, 10))
+    h = rng.uniform(0.2 / 64, 1.0 / 64, (2, 10))
+    w = rng.uniform(0.02, 0.2, (2, 10))
+    boxes[:, :10] = np.stack([y1, x1, y1 + h, x1 + w], axis=-1)
+    vjp = jax_vjp(feats, boxes, (16, 16))
+    ref, magnitude = vjp(grad), vjp(np.abs(grad))
+    got = pyramid_roi_align_backward_plain(
+        torch.from_numpy(grad), torch.from_numpy(boxes), [f.shape[1:] for f in feats],
+        (16, 16), IMAGE, torch.float32)
+    # the padding's whole cotangent on cell (0, 0) of P2
+    assert float(np.abs(ref[0][:, 0, 0]).min()) > 0
     for g, r, m in zip(got, ref, magnitude):
         assert g.dtype == torch.float32 and tuple(g.shape) == r.shape
         assert np.all(np.abs(g.numpy() - r) <= 1e-6 * m)
@@ -169,3 +197,29 @@ def test_no_boxes_gives_zero_gradients():
         (7, 7), IMAGE, torch.float32)
     assert [tuple(g.shape) for g in got] == [(2, *f.shape[1:]) for f in feats]
     assert all(not g.any() for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("c,crop", [(256, (7, 7)), (256, (16, 16)), (24, (1, 1)),
+                                    (256, (28, 28))])
+def test_backward_sizing_fits_a_block(dtype, c, crop):
+    """The backward kernels' channel chunks are powers of two holding whole
+    16-byte vectors, and each block's shared memory (the fold's [ch, 2 cw,
+    chunk] float32 buffer, the gather's [tile + stage slots, chunk] float32
+    and the slots' columns) stays within ``BACKWARD_SMEM_BYTES``, under the
+    227 KB a block may take; the workspace holds every slot a ROI may touch."""
+    ch, cw = crop
+    fold, gather, tile, slots = backward_sizing(c, ch, cw, dtype)
+    vec = 16 // dtype.itemsize
+    for chunk in (fold, gather):
+        assert chunk & (chunk - 1) == 0 and chunk % vec == 0
+    assert ch * 2 * cw * fold * 4 <= BACKWARD_SMEM_BYTES <= 227 * 1024
+    assert (tile + slots) * gather * 4 + slots * 4 <= BACKWARD_SMEM_BYTES
+    meta, patch = backward_workspace_bytes(2, 100, c, ch, cw)
+    assert meta == 2 * 100 * (4 + 2 * ch + 2 * cw) * 4
+    assert patch == 2 * 100 * (2 * ch) * (2 * cw) * c * 4
+
+
+def test_backward_sizing_rejects_crops_past_the_block():
+    with pytest.raises(ValueError, match="ch \\+ cw <= 128"):
+        backward_sizing(256, 64, 65, torch.float32)
