@@ -33,7 +33,9 @@ Phases (each prints one JSON line):
    op call launches each of its two kernels (``roi_align_backward_fold``,
    ``roi_align_backward_gather``) exactly once. Per layout it prints the
    serial work the layout asks: the most (ROI, row sample) entries on one
-   output row and the most ROIs covering one cell.
+   output row and the most ROIs covering one cell. The "sampled" layout
+   again at batch 8 (phase 15's step), in float32 and bfloat16, with the
+   same tolerances and bit-equal repeats, and the workspace's bytes.
 4. main path — ``Detector.detect`` on 2 seeded 1024² images at the full
    width of the one supported model (ResNet-101-FPN, DeepLabV2-MSC GLM at
    513², 6000 -> 1000 proposals, 100 detections), random seeded weights,
@@ -141,6 +143,23 @@ Phases (each prints one JSON line):
     the custom ops' wrapper ms and host µs from phase 3 beside PR 7's, and
     each op's host µs beside its launch function called directly (the
     dispatcher's cost).
+
+14. parity — ``cli.run_parity --dry_run`` at full width, bfloat16, on 8
+    synthetic 1024² images at ``--eval_batch 8`` with the detection-biased
+    weights: the ``.pth`` that ``cli.train train`` saves and the release
+    layout (``.pth`` without ``GLM_modual.*`` + ``deeplabv2.pth``) give
+    identical 12-way sweeps, AR@100 > 0, NMS 1 / RoIAlign 2 / backward 0
+    launches per evaluate batch, the seconds of each pass; then
+    ``cli.test_images`` pickles 2 of the images and ``cli.parity_check``
+    on the same ``.pth`` reports 2/2 within tolerance, and exits 1 on a
+    pickle with one box moved by 3 px.
+15. train_soak — ``cli.train_soak`` at batch 8, 1024², heads, 20 steps from
+    the seeded init, with the host loader and with ``--device_prep``: each
+    alone (its own median step ms by CUDA events, peak memory, launches),
+    then under the train phase's instrumentation: finite losses, NMS 1 /
+    RoIAlign 2 / backward 2 launches per step, the step wall and loader
+    wait, the positive ROIs per step, and the backward kernels' device ms
+    per step (``torch.profiler``, the last three steps).
 
 Then, on lines of their own: the kernels' JSON summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last. Any failure raises
@@ -380,7 +399,7 @@ BACKWARD_LAYOUTS = ("spread", "clustered", "sampled")
 BACKWARD_KERNELS = ("roi_align_backward_fold", "roi_align_backward_gather")
 
 
-def backward_cases(dev, b, dtype):
+def backward_cases(dev, b, dtype, layouts=BACKWARD_LAYOUTS):
     """(layout, pool, wrapper args) of the RoIAlign backward at the train
     step's shapes (1024² pyramid, C=256, 100 ROIs per image, pools 7 and
     16): boxes spread over the image; clustered on a few rows as the train
@@ -392,7 +411,7 @@ def backward_cases(dev, b, dtype):
     c, n = 256, 100
     shapes = [(s, s, c) for s in (256, 128, 64, 32)]
     rng = np.random.RandomState(5)
-    for layout in BACKWARD_LAYOUTS:
+    for layout in layouts:
         for pool in (7, 16):
             if layout == "spread":
                 boxes = roi_boxes(rng, b, n)
@@ -461,7 +480,7 @@ def backward_device_ms(dev, dtype=torch.float32) -> dict:
     return out
 
 
-def check_roi_align_backward(dev, b, dtype=torch.float32):
+def check_roi_align_backward(dev, b, dtype=torch.float32, layouts=BACKWARD_LAYOUTS):
     """The RoIAlign backward kernels' ``dtype`` instantiation in every layout
     of :func:`backward_cases` against the plain backward on the card, and two
     launches bit-equal. Both sum in float32, in other orders: float32
@@ -469,13 +488,15 @@ def check_roi_align_backward(dev, b, dtype=torch.float32):
     sum rounded once) within one bfloat16 ulp of the largest gradient. Each
     op call launches each of the two kernels (``roi_align_backward_fold``,
     then ``roi_align_backward_gather``) exactly once and nothing else of
-    its own. One summary line per layout (pools 7 + 16); the returned one,
-    the table's, is the "sampled" layout's, as the train step sends it."""
+    its own. One summary line per layout (pools 7 + 16), with the
+    workspace's bytes; the returned one, the table's, is the "sampled"
+    layout's, as the train step sends it."""
     from sln_amodal_tpu_torch.ops.roi_align import pyramid_roi_align_backward_plain
-    from sln_amodal_tpu_torch.ops.roi_align_cuda import pyramid_roi_align_backward
+    from sln_amodal_tpu_torch.ops.roi_align_cuda import (backward_workspace_bytes,
+                                                         pyramid_roi_align_backward)
 
     per_shape = []
-    for layout, pool, args in backward_cases(dev, b, dtype):
+    for layout, pool, args in backward_cases(dev, b, dtype, layouts):
         grad, boxes, shapes = args[:3]
         n = boxes.shape[1]
         out = pyramid_roi_align_backward(*args)
@@ -515,14 +536,17 @@ def check_roi_align_backward(dev, b, dtype=torch.float32):
                                          if k not in kernel_launches),
                      host_us=host_us(lambda: pyramid_roi_align_backward(*args), 30),
                      bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                     workspace_bytes=sum(backward_workspace_bytes(b, n, shapes[0][2], pool,
+                                                                  pool)),
                      **backward_chains(boxes, shapes, pool))
         emit({"phase": "kernel", "name": "roi_align_backward", "batch": b, **shape})
         per_shape.append(shape)
     summaries = {}
-    for layout in BACKWARD_LAYOUTS:
+    for layout in layouts:
         rows = [s for s in per_shape if s["layout"] == layout]
         total = {k: sum(s[k] for s in rows)
                  for k in ("ms", "device_ms", "plain_ms", "bound_ms", "host_us")}
+        total["workspace_bytes_max"] = max(s["workspace_bytes"] for s in rows)
         total.update(max_abs_err=max(s["max_abs_err"] for s in rows),
                      max_rel_err=max(s["max_rel_err"] for s in rows),
                      bound_by="bytes" if all(s["bound_by"] == "bytes" for s in rows)
@@ -668,131 +692,14 @@ def reference_check(dev):
           "score_max_abs_err": score_err, "mask_max_abs_err": mask_err})
 
 
-def biased_detection_boxes(cfg) -> np.ndarray:
-    """Pixel boxes of the detections :func:`biased_checkpoint` gives every
-    image. Its RPN scores all anchors equally and predicts zero deltas, so
-    the proposals are the first ``pre_nms_limit`` anchors, clipped and
-    thinned by NMS (computed here with the plain versions on the CPU); its
-    classifier scores every proposal equally, so the detections are the
-    first ``detection_max_instances`` proposals, each masked by a 75% dither
-    of its box."""
-    from sln_amodal_tpu_torch.detect.proposal import proposal_layer_batched
-    from sln_amodal_tpu_torch.ops.anchors import config_anchors
-
-    anchors = torch.from_numpy(config_anchors(cfg))
-    n = anchors.shape[0]
-    props, valid = proposal_layer_batched(
-        torch.full((1, n, 2), 0.5), torch.zeros((1, n, 4)), anchors,
-        proposal_count=cfg.post_nms_rois_inference, nms_threshold=cfg.rpn_nms_threshold,
-        image_size=cfg.image_size, rpn_bbox_std_dev=cfg.rpn_bbox_std_dev,
-        pre_nms_limit=cfg.pre_nms_limit)
-    boxes = torch.round(props[0][valid[0]] * cfg.image_size).numpy().astype(np.int32)
-    boxes = boxes[:cfg.detection_max_instances]
-    return boxes[(boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])]
-
-
-def biased_pair(cfg):
-    """Draws an image's two regions from the boxes the biased RPN proposes
-    first (:func:`biased_detection_boxes`): one at random and the box that
-    overlaps it most. The detection-biased checkpoint's dithered masks match
-    them (a nonzero recall shows the masks survived the unmold), and
-    training from the RPN-biased checkpoint samples positive ROIs on them."""
-    boxes = biased_detection_boxes(cfg)
-    y1, x1 = np.maximum(boxes[:, None, :2], boxes[None, :, :2]).transpose(2, 0, 1)
-    y2, x2 = np.minimum(boxes[:, None, 2:], boxes[None, :, 2:]).transpose(2, 0, 1)
-    overlap = np.clip(y2 - y1, 0, None) * np.clip(x2 - x1, 0, None)
-    np.fill_diagonal(overlap, -1)
-
-    def pair(rng):
-        a = rng.randint(len(boxes))
-        return boxes[a], boxes[int(np.argmax(overlap[a]))]
-    return pair
-
-
-def square_pair(size):
-    """Draws an image's two regions as the tests' synthetic set
-    (``tests/fixtures.py``) places them: two half-size squares at a seeded
-    offset, the second shifted by a quarter of the image. With it
-    :func:`write_dataset` draws the fixture's images and squares (its
-    ``isStuff`` alternates on region 1, which training does not read and
-    the ``both/all`` sweep does not filter on)."""
-    def pair(rng):
-        o, half = rng.randint(0, size // 4), size // 2
-        q = o + half // 2
-        return (o, o, o + half, o + half), (q, q, q + half, q + half)
-    return pair
-
-
-def write_dataset(root, size, n_images, seed, pair, subset="val", layers=False) -> str:
-    """A COCOA-style set in the layout of the tests' synthetic dataset
-    (``annotations/COCO_amodal_{subset}2014.json``, ``{subset}2014/*.jpg``):
-    seeded noise images, each with the two rectangular regions that
-    ``pair(rng)`` draws as pixel boxes (y1, x1, y2, x2), region 0 occluded
-    by region 1 (``order``, ``occlude_rate``, ``isStuff``, amodal
-    ``segmentation`` and ``visible_mask``/``invisible_mask`` RLEs written
-    with the port's RLE), and with ``layers`` the sem-dist layer map beside
-    each image (``.npz``, the training loader's ground truth)."""
-    from PIL import Image
-    from sln_amodal_tpu_torch.data import semdist
-    from sln_amodal_tpu_torch.eval_amodal import rle
-
-    rng = np.random.RandomState(seed)
-    img_dir = os.path.join(root, f"{subset}2014")
-    ann_dir = os.path.join(root, "annotations")
-    os.makedirs(img_dir, exist_ok=True)
-    os.makedirs(ann_dir, exist_ok=True)
-
-    def rect(box):
-        m = np.zeros((size, size), bool)
-        m[box[0]:box[2], box[1]:box[3]] = True
-        return m
-
-    def rle_str(mask):
-        r = rle.encode(np.asfortranarray(mask.astype(np.uint8)))
-        return {"size": r["size"], "counts": r["counts"].decode()}
-
-    images, annotations = [], []
-    for i in range(n_images):
-        img_id, fname = i + 1, f"img_{i + 1:04d}.jpg"
-        Image.fromarray(rng.randint(0, 255, (size, size, 3), np.uint8)).save(
-            os.path.join(img_dir, fname))
-        a0, a1 = (rect(box) for box in pair(rng))
-        inv0 = a0 & a1
-        if layers:
-            np.savez(os.path.join(img_dir, fname[:-4] + ".npz"),
-                     layer=semdist.encode_layer_map([a0, a1], [inv0, None], min_size=4))
-        regions = [
-            {"segmentation": rle_str(a0), "visible_mask": rle_str(a0 & ~inv0),
-             "invisible_mask": rle_str(inv0), "isStuff": 0,
-             "occlude_rate": float(inv0.sum()) / float(a0.sum()), "order": 1,
-             "amodal_region": {"order": 1}, "area": int(a0.sum())},
-            {"segmentation": rle_str(a1), "visible_mask": rle_str(a1),
-             "isStuff": i % 2, "occlude_rate": 0.0, "order": 2,
-             "amodal_region": {"order": 2}, "area": int(a1.sum())},
-        ]
-        images.append({"id": img_id, "file_name": fname, "width": size, "height": size})
-        annotations.append({"id": img_id, "image_id": img_id, "regions": regions})
-    with open(os.path.join(ann_dir, f"COCO_amodal_{subset}2014.json"), "w") as f:
-        json.dump({"images": images, "annotations": annotations}, f)
-    return root
-
-
 def biased_checkpoint(cfg, log_dir) -> str:
-    """The detection-biased state_dict of ``cfg``'s model, saved as a
-    reference ``.pth``. Its base is the seeded init with a zero classifier
-    kernel: with random trunks the RoI features are large and alike, so a
-    random kernel decides foreground or background for every RoI at once,
-    by the seed's luck (seed 0 gives all foreground under PyTorch 2.13 and
-    all background under 2.11, which draws other values for the seed). A
-    zero kernel leaves the recipe's +8 foreground bias alone: equal scores,
-    and the detections are the first proposals in order."""
-    from sln_amodal_tpu_torch.convert import init_params
+    """The detection-biased state_dict of ``cfg``'s model
+    (``utils/synthetic.py::detection_biased_init``), saved as a reference
+    ``.pth``."""
     from sln_amodal_tpu_torch.train import checkpoint as ckpt
-    from sln_amodal_tpu_torch.utils.synthetic import detection_biased_variables
+    from sln_amodal_tpu_torch.utils.synthetic import detection_biased_init
 
-    base = init_params(cfg, seed=0, device="cpu")
-    base["classifier.linear_class.weight"].zero_()
-    return ckpt.save(detection_biased_variables(base), log_dir, "biased", 1)
+    return ckpt.save(detection_biased_init(cfg), log_dir, "biased", 1)
 
 
 def evaluate_args(root, model, batch, device):
@@ -809,12 +716,14 @@ def reference_eval(dev, tmp):
     sweep vectors must be equal."""
     from sln_amodal_tpu_torch.cli import train as cli
     from sln_amodal_tpu_torch.config import Config
+    from sln_amodal_tpu_torch.utils.synthetic import biased_pair, make_synthetic_dataset
 
     cfg = Config(image_size=128, backbone="resnet50", glm_input_size=65,
                  pre_nms_limit=400, post_nms_rois_inference=64,
                  detection_max_instances=32, compute_dtype="float64", param_dtype="float64")
-    root = write_dataset(os.path.join(tmp, "small"), cfg.image_size, 4, seed=1,
-                         pair=biased_pair(cfg))
+    root = make_synthetic_dataset(os.path.join(tmp, "small"), n_images=4, size=cfg.image_size,
+                                  subset="val", seed=1, regions=biased_pair(cfg),
+                                  alternate_stuff=True)
     model = biased_checkpoint(cfg, os.path.join(tmp, "small_logs"))
     runs = []
     for device in (dev, "cpu"):
@@ -879,12 +788,14 @@ def eval_path(dev, tmp):
     from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
     from sln_amodal_tpu_torch.ops.roi_align_cuda import (ROI_ALIGN_BACKWARD_KERNEL,
                                                          ROI_ALIGN_KERNEL)
+    from sln_amodal_tpu_torch.utils.synthetic import biased_pair, make_synthetic_dataset
 
     n_images, batch = 32, 8
     t0 = time.perf_counter()
     root = os.path.join(tmp, "eval")
     config = cli.eval_config(evaluate_args(root, "", batch, dev))
-    write_dataset(root, config.image_size, n_images, seed=2, pair=biased_pair(config))
+    make_synthetic_dataset(root, n_images=n_images, size=config.image_size, subset="val",
+                           seed=2, regions=biased_pair(config), alternate_stuff=True)
     args = evaluate_args(root, biased_checkpoint(config, os.path.join(tmp, "eval_logs")),
                          batch, dev)
     dataset, coco, ids = cli.load_eval_dataset(args)
@@ -987,14 +898,15 @@ def reference_train(dev, tmp):
     from sln_amodal_tpu_torch.data.pipeline import TrainLoader
     from sln_amodal_tpu_torch.models.sln import SLNAmodal
     from sln_amodal_tpu_torch.train.trainer import to_device
-    from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
+    from sln_amodal_tpu_torch.utils.synthetic import (biased_pair, make_synthetic_dataset,
+                                                      rpn_biased_variables)
 
     cfg = Config(image_size=128, backbone="resnet50", glm_input_size=65, pre_nms_limit=400,
                  post_nms_rois_training=64, post_nms_rois_inference=64,
                  detection_max_instances=32, train_rois_per_image=16, max_gt_instances=8,
                  batch_size=2, compute_dtype="float64", param_dtype="float64")
-    root = write_dataset(os.path.join(tmp, "train_small"), cfg.image_size, 4, seed=3,
-                         pair=biased_pair(cfg), subset="train", layers=True)
+    root = make_synthetic_dataset(os.path.join(tmp, "train_small"), n_images=4,
+                                  size=cfg.image_size, seed=3, regions=biased_pair(cfg))
     ds = AmodalDataset()
     ds.load_amodal(root, "train")
     ds.prepare()
@@ -1060,11 +972,13 @@ def convergence(dev, tmp, steps=150):
     from sln_amodal_tpu_torch.data.pipeline import TrainLoader
     from sln_amodal_tpu_torch.infer import Detector
     from sln_amodal_tpu_torch.train.trainer import Trainer
-    from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
+    from sln_amodal_tpu_torch.utils.synthetic import (make_synthetic_dataset,
+                                                      rpn_biased_variables)
 
     root = os.path.join(tmp, "conv")
-    write_dataset(root, 64, 8, seed=0, pair=square_pair(64), subset="train", layers=True)
-    write_dataset(root, 64, 4, seed=7, pair=square_pair(64))
+    make_synthetic_dataset(root, n_images=8, size=64, seed=0)
+    make_synthetic_dataset(root, n_images=4, size=64, subset="val", seed=7,
+                           alternate_stuff=True)
     cfg = Config(image_size=64, glm_input_size=33, batch_size=2, pre_nms_limit=512,
                  post_nms_rois_inference=256, post_nms_rois_training=64,
                  train_rois_per_image=16, detection_max_instances=100, max_gt_instances=8,
@@ -1365,14 +1279,16 @@ def train_path(dev, tmp):
     share and the rest are timed."""
     from sln_amodal_tpu_torch.cli import train as cli
     from sln_amodal_tpu_torch.train import checkpoint as ckpt
+    from sln_amodal_tpu_torch.utils.synthetic import biased_pair, make_synthetic_dataset
 
     root, logs = os.path.join(tmp, "train"), os.path.join(tmp, "train_logs")
     t0 = time.perf_counter()
     cfg = cli.train_config(cli.build_parser().parse_args(
         ["train", "--dataset", root, "--batch_size", "2"]))
     pair = biased_pair(cfg)
-    write_dataset(root, cfg.image_size, 16, seed=4, pair=pair, subset="train", layers=True)
-    write_dataset(root, cfg.image_size, 8, seed=4, pair=pair)      # the first 8 images
+    make_synthetic_dataset(root, n_images=16, size=cfg.image_size, seed=4, regions=pair)
+    make_synthetic_dataset(root, n_images=8, size=cfg.image_size, subset="val", seed=4,
+                           regions=pair, alternate_stuff=True)      # the first 8 images
     model = ckpt.save(train_start_weights(cfg, dev), os.path.join(tmp, "rpn_biased"),
                       "rpn_biased", 1)
     setup_s = time.perf_counter() - t0
@@ -2364,6 +2280,156 @@ def serving(dev, tmp, path, ev, kernel_checks):
     return out
 
 
+def parity_path(dev, tmp):
+    """Phase 14: ``cli.run_parity --dry_run`` at full width (the ``Config``
+    default, bfloat16) on 8 synthetic 1024² images at ``--eval_batch 8``:
+    the ``.pth`` that ``cli.train train`` saves and the release layout (the
+    ``.pth`` without ``GLM_modual.*`` keys, the standalone
+    ``deeplabv2.pth``) give identical sweeps with AR@100 > 0, and each
+    evaluate batch launches NMS once, RoIAlign twice, the backward never.
+    Then ``cli.test_images`` writes the reference pickles of 2 of the images
+    and ``cli.parity_check`` on the same ``.pth`` finds 2/2 within tolerance
+    (exit 0), and exits 1 on a copy with one box moved by 3 px."""
+    import pickle
+    import shutil
+
+    from sln_amodal_tpu_torch.cli import parity_check, run_parity, test_images
+
+    kernels = train_kernels()
+    for k in kernels:
+        k.launches = 0
+    t = time.perf_counter()
+    dry = run_parity.main(["--dry_run", os.path.join(tmp, "parity"), "--limit", "8",
+                           "--eval_batch", "8", "--device", str(dev)])
+    dry_s = time.perf_counter() - t
+    launches = {n: k.launches for n, k in zip(KERNEL_NAMES, train_kernels())}
+    if launches != {"nms": 2, "roi_align": 4, "roi_align_backward": 0}:
+        raise AssertionError(f"dry run launches over 2 evaluate batches: {launches}")
+    if dry.native != dry.release or dry.native["both/all"][5] <= 0:
+        raise AssertionError(f"dry run sweeps {dry.native['both/all']} / "
+                             f"{dry.release['both/all']}")
+
+    images, ref, perturbed = (os.path.join(tmp, d) for d in
+                              ("parity_images", "parity_ref", "parity_perturbed"))
+    os.makedirs(images)
+    for name in ("img_0001.jpg", "img_0002.jpg"):
+        shutil.copy(os.path.join(dry.dataset, "val2014", name), images)
+    t = time.perf_counter()
+    written = test_images.main(["--images", images, "--model", dry.native_path, "--out", ref,
+                                "--device", str(dev)])
+    test_images_s = time.perf_counter() - t
+    argv = ["--images", images, "--model", dry.native_path, "--device", str(dev)]
+    t = time.perf_counter()
+    status = parity_check.main(argv + ["--reference_results", ref])
+    parity_check_s = time.perf_counter() - t
+    shutil.copytree(ref, perturbed)
+    moved = os.path.join(perturbed, os.path.basename(written[0]))
+    with open(moved, "rb") as f:
+        result = pickle.load(f)
+    result["rois"][0] += 3
+    with open(moved, "wb") as f:
+        pickle.dump(result, f)
+    perturbed_status = parity_check.main(argv + ["--reference_results", perturbed])
+    detections = []
+    for path in written:
+        with open(path, "rb") as f:
+            detections.append(len(pickle.load(f)["scores"]))
+    if (status, perturbed_status) != (0, 1):
+        raise AssertionError(f"parity_check exit {status} (want 0), on the moved box "
+                             f"{perturbed_status} (want 1)")
+    out = dict(images=8, eval_batch=8, dtype="bfloat16", dry_run_s=dry_s,
+               sweep_s=dry.seconds, sweeps_identical=True,
+               both_all=dry.native["both/all"], launches=launches,
+               launches_per_batch={k: v // 2 for k, v in launches.items()},
+               detections_per_image=detections,
+               test_images_s=test_images_s, parity_check_s=parity_check_s,
+               parity_check_exit=status, moved_box_exit=perturbed_status)
+    emit({"phase": "parity", **out})
+    return out
+
+
+SOAK_STEPS = 20
+SOAK_LOADERS = (("host", []), ("device_prep", ["--device_prep"]))
+
+
+def soak_path(dev, tmp):
+    """Phase 15: ``cli.train_soak`` at batch 8, 1024², heads, ``SOAK_STEPS``
+    steps from the seeded init, with the host ``TrainLoader`` and with
+    ``--device_prep``. First each loader's soak alone, as a user runs it:
+    its own median step ms (CUDA events, no synchronize), its wall, peak
+    device memory, and the kernels' launches over both runs, counted from
+    0. Then each again under :func:`timed_train` (each step ends in a
+    synchronize; the last three run under ``torch.profiler`` and are left
+    out of the medians): finite losses (the first and last printed),
+    launches per step (NMS 1, RoIAlign 2, backward 2), the step's wall and
+    device ms, the loader wait, the positive and valid sampled ROIs per step
+    (from the seeded init few or none are positive) and the backward
+    kernels' device ms per profiled step."""
+    from sln_amodal_tpu_torch.cli import train_soak
+    from sln_amodal_tpu_torch.train import trainer as trainer_mod
+
+    kernels = train_kernels()
+    root = os.path.join(tmp, "soak")
+    argv = ["--batch", "8", "--steps", str(SOAK_STEPS), "--size", "1024", "--root", root,
+            "--device", str(dev)]
+    runs = {}
+    for k in kernels:
+        k.launches = 0
+    for label, extra in SOAK_LOADERS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        soak = train_soak.main(argv + extra)
+        runs[label] = dict(batch=8, image=1024, steps=SOAK_STEPS,
+                           soak_run_s=time.perf_counter() - t, soak_wall_s=soak.wall_s,
+                           soak_median_step_ms=soak.median_step_ms,
+                           soak_step_ms=soak.step_ms, soak_last_losses=soak.last_losses,
+                           peak_mem_bytes=int(torch.cuda.max_memory_allocated(dev)))
+    launches = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
+    if launches != {"nms": 2 * SOAK_STEPS, "roi_align": 4 * SOAK_STEPS,
+                    "roi_align_backward": 4 * SOAK_STEPS}:
+        raise AssertionError(f"soak launches over {2 * SOAK_STEPS} steps: {launches}")
+
+    with timed_train(trainer_mod, train_soak, kernels, profile_last=3) as (rec, stage,
+                                                                          stop_profile):
+        for label, extra in SOAK_LOADERS:
+            stage(SOAK_STEPS)
+            first = len(rec["steps"])
+            waits = len(rec["loader_wait_ms"])
+            t = time.perf_counter()
+            train_soak.main(argv + extra)
+            run_s = time.perf_counter() - t
+            _, kernel_ms, _ = stop_profile()
+            steps_rec = rec["steps"][first:]
+            profiled = [s for s in steps_rec if s["profiled"]]
+            timed = [s for s in steps_rec[1:] if not s["profiled"]]
+            if (len(steps_rec) != SOAK_STEPS
+                    or not all(np.isfinite(v) for s in steps_rec for v in s["losses"].values())):
+                raise AssertionError(f"soak {label}: steps {steps_rec}")
+            if any(s["launches"] != [1, 2, 2] for s in steps_rec):
+                raise AssertionError(f"soak {label}: launches per step "
+                                     f"{[s['launches'] for s in steps_rec]}")
+            wait = rec["loader_wait_ms"][waits:]
+            positives = [s["positives"] for s in steps_rec]
+            runs[label].update(
+                timed_run_s=run_s,
+                step_wall_ms_median=statistics.median(s["wall_ms"] for s in timed),
+                step_device_ms_median=statistics.median(s["device_ms"] for s in timed),
+                images_per_s=8 * 1e3 / statistics.median(s["wall_ms"] for s in timed),
+                loader_wait_ms_per_step=statistics.mean(wait),
+                loader_wait_ms_after_first_step=statistics.mean(wait[1:]),
+                loader_wait_ms_max=max(wait),
+                backward_device_ms_per_step=kernel_ms["roi_align_backward_"] / len(profiled),
+                kernel_device_ms_per_profiled_step={k: v / len(profiled)
+                                                    for k, v in kernel_ms.items()},
+                first_losses=steps_rec[0]["losses"], last_losses=steps_rec[-1]["losses"],
+                positives_per_step=positives,
+                steps_with_positives=sum(p > 0 for p in positives),
+                valid_rois_per_step=[s["valid_rois"] for s in steps_rec],
+                launches_per_step=dict(zip(KERNEL_NAMES, steps_rec[-1]["launches"])))
+            emit({"phase": "train_soak", "loader": label, **runs[label]})
+    return dict(runs=runs, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2397,6 +2463,9 @@ def main() -> int:
         roi_bf16 = check_roi_align(dev, b, torch.bfloat16)
     backward = check_roi_align_backward(dev, 2)
     backward_bf16 = check_roi_align_backward(dev, 2, torch.bfloat16)
+    # the batch-8 train step's shapes (phase 15), as the step pads them
+    backward_b8 = {str(dtype): check_roi_align_backward(dev, 8, dtype, layouts=("sampled",))
+                   for dtype in (torch.float32, torch.bfloat16)}
     paths = main_paths(dev)
     path = paths["float32"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2411,6 +2480,8 @@ def main() -> int:
         dp = data_parallel(dev, tmp, tr, ev)
         srv = serving(dev, tmp, path, ev, {"nms": nms, "roi_align": roi,
                                            "roi_align_backward": backward})
+        par = parity_path(dev, tmp)
+        soak = soak_path(dev, tmp)
 
     # one line per kernel: times at the evaluate path's shapes (batch 8) for
     # the forward kernels, at the train step's (batch 2) for the backward,
@@ -2440,14 +2511,18 @@ def main() -> int:
                                  "train_device_prep": trp["launches"][key],
                                  "data_parallel": dp["launches"][key],
                                  "data_parallel_serving": dp["serving_launches"][key],
-                                 "serving": srv["launches"][key]},
+                                 "serving": srv["launches"][key],
+                                 "parity": par["launches"][key],
+                                 "train_soak": soak["launches"][key]},
             "dtype": "float32 boxes" if k32 is None else "bfloat16",
             # the backward's times are the "sampled" layout's, the others' beside
             **({"layout": "sampled",
                 "device_ms_by_layout": {name: v["device_ms"] for name, v in k["layouts"].items()}}
                if "layouts" in k else {}),
             "batch": batch, **timing(k), "library_ms": None,
-            "float32": None if k32 is None else timing(k32)})
+            "float32": None if k32 is None else timing(k32),
+            **({"batch8_sampled": {d: timing(v) for d, v in backward_b8.items()}}
+               if key == "roi_align_backward" else {})})
     emit({"kernels": kernels})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

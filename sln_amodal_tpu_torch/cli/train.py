@@ -233,8 +233,10 @@ class Evaluation(NamedTuple):
     seconds: float                    # wall time of the prediction loop
 
 
-def run_evaluate(args) -> Evaluation:
-    config = eval_config(args)
+def run_evaluate(args, config: Optional[Config] = None) -> Evaluation:
+    """The evaluate command; ``config`` (default :func:`eval_config`) lets a
+    caller evaluate another configuration of the model."""
+    config = config or eval_config(args)
     dataset, coco, image_ids = load_eval_dataset(args)
     detector = make_detector(args, config)
     t0 = time.perf_counter()

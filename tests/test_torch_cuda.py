@@ -266,6 +266,40 @@ def test_roi_align_backward_kernel_matches_plain(cuda_device, dtype, case):
         assert all(float(o.abs().max()) == 0.0 for o in out)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", [7, 16])
+def test_roi_align_backward_batch8_sampled(cuda_device, dtype, pool):
+    """The backward kernels at the batch-8 train step's shapes (1024²
+    pyramid, C=256, 100 ROIs per image) in the "sampled" layout, as the
+    step pads them: 30 boxes 24-64 px on the top rows and 70 all-zero rows
+    per image. Within the plain backward's tolerances above, bit-equal
+    across launches."""
+    rng = np.random.RandomState(8)
+    b, n, c = 8, 100, 256
+    size = rng.uniform(24, 64, (b, 30, 2))
+    y1 = rng.uniform(0, 64, (b, 30)) - size[..., 0] / 2
+    x1 = rng.uniform(0, 960, (b, 30))
+    boxes = np.zeros((b, n, 4), np.float32)
+    boxes[:, :30] = np.clip(np.stack([y1, x1, y1 + size[..., 0], x1 + size[..., 1]], -1),
+                            0, 1024) / 1024
+    boxes = torch.from_numpy(boxes).to(cuda_device)
+    shapes = [(s, s, c) for s in (256, 128, 64, 32)]
+    grad = torch.randn((b, n, pool, pool, c),
+                       generator=torch.Generator().manual_seed(8)).to(cuda_device, dtype)
+    args = (grad, boxes, shapes, (pool, pool), (1024, 1024), dtype)
+    out = pyramid_roi_align_backward(*args)
+    again = pyramid_roi_align_backward(*args)
+    ref = pyramid_roi_align_backward_plain(*args)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref)
+    tol = (2.0 ** (math.floor(math.log2(scale)) - 7) if dtype == torch.bfloat16
+           else 1e-5 * scale)
+    for o, a, r in zip(out, again, ref):
+        assert o.shape == r.shape and o.dtype == dtype
+        assert torch.equal(o, a)
+        assert float((o.float() - r.float()).abs().max()) <= tol
+
+
 def test_roi_align_autograd_uses_both_kernels(cuda_device):
     """Through autograd: the forward kernel once, the backward kernel once,
     no gradient into the boxes; the levels' gradient equals the backward

@@ -13,7 +13,6 @@ the JAX ``prepare_batch`` output, and ``cli.train train --device_prep`` on
 the CPU.
 """
 
-import importlib.util
 import os
 import shutil
 
@@ -52,10 +51,9 @@ from sln_amodal_tpu_torch.ops.anchors import config_anchors
 from sln_amodal_tpu_torch.train.optim import StagedSGD
 from sln_amodal_tpu_torch.train.trainer import to_device, train_step
 from sln_amodal_tpu_torch.utils import image as image_utils
+from sln_amodal_tpu_torch.utils import synthetic
 from test_torch_train_slice import (CFG, LR, SMALL, assert_step_equals_jax, jax_reference_step,
                                     shared_weights)
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def random_label_map(rng, h, w, n_objects=5):
@@ -520,24 +518,17 @@ def test_to_device_passes_tensors_through():
 # ------------------------------------------------------ the whole slice --
 
 
-def chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 @pytest.fixture(scope="module")
 def biased_root(tmp_path_factory):
     """64² training images whose ground truth sits on the RPN-biased
-    model's first proposals (``chip_smoke.py::write_dataset``), with their
-    sem-dist maps, so the heads see positive ROIs."""
-    smoke = chip_smoke()
+    model's first proposals (``utils/synthetic.py::biased_pair``), with
+    their sem-dist maps, so the heads see positive ROIs."""
     root = str(tmp_path_factory.mktemp("biased"))
-    cfg = Config(**CFG)
-    smoke.write_dataset(root, 64, 4, seed=3, pair=smoke.biased_pair(cfg), subset="train",
-                        layers=True)
-    smoke.write_dataset(root, 64, 2, seed=5, pair=smoke.biased_pair(cfg), layers=True)
+    pair = synthetic.biased_pair(Config(**CFG))
+    synthetic.make_synthetic_dataset(root, n_images=4, size=64, seed=3, regions=pair,
+                                     alternate_stuff=True)
+    synthetic.make_synthetic_dataset(root, n_images=2, size=64, subset="val", seed=5,
+                                     regions=pair, alternate_stuff=True)
     return root
 
 

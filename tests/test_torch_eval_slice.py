@@ -310,7 +310,8 @@ leaked = sorted(n for n in sys.modules
                 and sys.modules[n] is not None)
 assert not leaked, leaked
 for name in ("data.device_prep", "cli.convert_dataset", "parallel.mesh", "parallel.multihost",
-             "ops.library", "serve.export", "cli.export_model", "utils.profiling", "viz"):
+             "ops.library", "serve.export", "cli.export_model", "utils.profiling", "viz",
+             "cli.run_parity", "cli.parity_check", "cli.train_soak"):
     assert "sln_amodal_tpu_torch." + name in names, name
 print(len(names))
 """
