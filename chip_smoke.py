@@ -36,14 +36,26 @@ Phases (each prints one JSON line):
    output row and the most ROIs covering one cell. The "sampled" layout
    again at batch 8 (phase 15's step), in float32 and bfloat16, with the
    same tolerances and bit-equal repeats, and the workspace's bytes.
-4. main path — ``Detector.detect`` on 2 seeded 1024² images at the full
+4. main path — ``Detector.detect`` on seeded 1024² images at the full
    width of the one supported model (ResNet-101-FPN, DeepLabV2-MSC GLM at
    513², 6000 -> 1000 proposals, 100 detections), random seeded weights,
-   in float32 and in bfloat16 (the same weights): per dtype the kernels'
-   launch counts over that run (the backward's: 0), ms per call and peak
-   device memory; for bfloat16 the share of float32's top-100 boxes it
-   also keeps at IoU >= 0.9 and the largest raw mask difference on them
-   (printed, not asserted).
+   at batch 2 and 8, in float32 and in bfloat16 (the same weights). On the
+   card ``Detector`` runs its program as a captured CUDA graph
+   (``compiled.py``): per case the first ``dispatch`` warms it up and
+   captures it (the wrappers' launch counts: NMS 2, RoIAlign 4, backward
+   0, one capture), and its outputs, three replays on other images and two
+   batches in flight (dispatch, dispatch, collect, collect) are bit-equal
+   to the eager model (``SLNAmodal.infer_detect_only`` called directly) on
+   the same inputs; ``torch.profiler`` finds, by kernel name, NMS 1 /
+   RoIAlign 2 / backward 0 launches of the csrc kernels per replay, and a
+   replay calls no wrapper. Graphed and eager side by side (in turns):
+   dispatch-to-sync and wall ms, the host's launch calls per detect, the
+   device kernels, kernel ms and busy share of one dispatch, peak device
+   memory (from the capture on, and of the eager graph alone) and the
+   bytes the graph keeps reserved (its pool and buffers). At batch
+   2, for bfloat16, the share of float32's top-100 boxes it also keeps at
+   IoU >= 0.9 and the largest raw mask difference on them (printed, not
+   asserted).
 5. reference — the whole slice at a small size in float64 on the card
    (kernels) against the CPU (plain versions): equal boxes and classes;
    then the evaluate path (``cli.train``) at 128² with the detection-biased
@@ -55,8 +67,9 @@ Phases (each prints one JSON line):
    the software-pipelined loop (best of two passes), device and host ms per
    batch, the device's busy share, the 12-way sweep's seconds, detections
    per image, ``both/all`` AP and AR@100 (nonzero), peak device memory, and
-   the kernels' launches (NMS once and RoIAlign twice per batch, the
-   backward never).
+   the kernels' launches: the graph captured once (its warm-up and capture
+   the wrappers' only launches) and, in the profiled pass, NMS once and
+   RoIAlign twice per batch, the backward never.
 7. reference_train — one training step at 128², float64, on the card
    (kernels) and on the CPU (plain versions) from the same weights, batch
    and target-layer draws: equal sampled ROIs, losses within 1e-6
@@ -91,8 +104,8 @@ Phases (each prints one JSON line):
     events), upload bytes per batch of each route and of the host loader's
     batch, runs per sample and the RLE budget.
 11. train_device_prep — ``cli.train train --stage heads`` for 7 steps as
-    phase 9 runs it (same weights, data and timings), eight times in turns:
-    (host loader, ``--device_prep``, ``--device_prep``, host loader) twice.
+    phase 9 runs it (same weights, data and timings), four times in turns:
+    host loader, ``--device_prep``, ``--device_prep``, host loader.
     Per run and per loader: step wall, device span, images/s, busy share, loader
     wait, the loader threads' host ms, ``cudaMalloc`` calls and CUDA
     runtime host ms per step, peak memory, positives and launches per step
@@ -130,8 +143,10 @@ Phases (each prints one JSON line):
     equals ``Detector.detect`` bit for bit (rois, class ids, scores, masks),
     a one-image request (padded to 2) equals the ``Detector``'s row of that
     image, three images raise; (c) the serving ``detect``'s device ms (CUDA
-    events) and wall ms beside ``Detector.detect``'s, median of 5; (d) its
-    launches per ``detect`` (NMS 1, RoIAlign 2, backward 0: ``serving``);
+    events) and wall ms beside ``Detector.detect``'s, median of 5, both on
+    their captured graphs; (d) its launches: the wrappers' at the capture
+    (NMS 2, RoIAlign 4, backward 0: ``serving``), none in a replay, and per
+    replayed ``detect`` on the device NMS 1, RoIAlign 2, backward 0;
     (e) at 128²: ``cli.export_model --model random --batch 1 --full`` writes
     an artifact that loads, whose ``last_global_label`` and detections equal
     ``Detector(detect_only=False)``'s on the same seeded weights; a mesh
@@ -148,8 +163,10 @@ Phases (each prints one JSON line):
     synthetic 1024² images at ``--eval_batch 8`` with the detection-biased
     weights: the ``.pth`` that ``cli.train train`` saves and the release
     layout (``.pth`` without ``GLM_modual.*`` + ``deeplabv2.pth``) give
-    identical 12-way sweeps, AR@100 > 0, NMS 1 / RoIAlign 2 / backward 0
-    launches per evaluate batch, the seconds of each pass; then
+    identical 12-way sweeps, AR@100 > 0, the seconds of each pass, and the
+    launches of the two passes of one batch (a ``Detector`` each): the
+    wrappers' at the two captures, NMS 4 / RoIAlign 8 / backward 0, and as
+    many on the device (two warm-ups, two replays); then
     ``cli.test_images`` pickles 2 of the images and ``cli.parity_check``
     on the same ``.pth`` reports 2/2 within tolerance, and exits 1 on a
     pickle with one box moved by 3 px.
@@ -557,13 +574,50 @@ def check_roi_align_backward(dev, b, dtype=torch.float32, layouts=BACKWARD_LAYOU
     return dict(summaries["sampled"], layouts=summaries)
 
 
-def main_path(dev, dtype="float32"):
-    """Phase 4 in one compute dtype (float32 parameters either way)."""
+# the csrc kernel whose launches count each op call, by its name in a
+# torch.profiler trace: a replayed graph launches the captured kernels
+# without calling the wrappers, whose counters then count only the
+# warm-up and the capture of each graph
+PROFILED_KERNELS = {"nms": "nms_scan_kernel", "roi_align": "roi_align_kernel",
+                    "roi_align_backward": "roi_align_backward_fold"}
+ONE_DETECT = {"nms": 1, "roi_align": 2, "roi_align_backward": 0}
+
+
+def csrc_launches(per_name: dict) -> dict:
+    """{kernel: launches} summed over the profiled names that hold each
+    kernel's name, from {name: launches}."""
+    return {k: sum(n for name, n in per_name.items() if frag in name)
+            for k, frag in PROFILED_KERNELS.items()}
+
+
+def csrc_launches_in(prof, calls: int) -> dict:
+    """{kernel: launches per call} of the csrc kernels in a
+    ``torch.profiler`` window over ``calls`` calls, rounded (the profiler
+    may drop an event: :func:`device_kernels`)."""
+    from torch.autograd import DeviceType
+
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return {k: round(n / calls) for k, n in csrc_launches(counts).items()}
+
+
+def launches_per_call(fn, calls: int) -> dict:
+    """{kernel: launches per call of ``fn``} of the csrc kernels on the
+    device (``torch.profiler``, :func:`device_kernels`)."""
+    return csrc_launches({name: n for name, (_, n) in device_kernels(fn, calls).items()})
+
+
+def outputs_equal(got, want) -> bool:
+    return all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def main_path(dev, dtype="float32", batch=2):
+    """Phase 4 in one compute dtype (float32 parameters either way) and
+    batch: the graphed ``Detector.detect`` against the eager model."""
     from sln_amodal_tpu_torch.config import Config
-    from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
-    from sln_amodal_tpu_torch.ops.roi_align_cuda import (ROI_ALIGN_BACKWARD_KERNEL,
-                                                         ROI_ALIGN_KERNEL)
-    from sln_amodal_tpu_torch.profile_infer import make_detector
+    from sln_amodal_tpu_torch.profile_infer import eager_dispatch, kernel_times, make_detector
 
     cfg = Config(compute_dtype=dtype, param_dtype="float32")
     t0 = time.perf_counter()
@@ -574,43 +628,111 @@ def main_path(dev, dtype="float32"):
 
     rng = np.random.RandomState(0)
     size = cfg.image_size
-    images = [rng.randint(0, 256, (size, size, 3), np.uint8) for _ in range(2)]
-    det.detect(images)                     # warm-up: cuDNN picks its algorithms
-    torch.cuda.synchronize()
-
-    calls = 3
-    kernels = {"nms": NMS_KERNEL, "roi_align": ROI_ALIGN_KERNEL,
-               "roi_align_backward": ROI_ALIGN_BACKWARD_KERNEL}
+    # the images, then three other sets for the replays
+    sets = [[rng.randint(0, 256, (size, size, 3), np.uint8) for _ in range(batch)]
+            for _ in range(4)]
+    images = sets[0]
+    kernels = dict(zip(KERNEL_NAMES, train_kernels()))
     for k in kernels.values():
         k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    wall, device_ms, results, raw = [], [], None, None
-    for _ in range(calls):
-        t = time.perf_counter()
-        pending = det.dispatch(images)
-        torch.cuda.synchronize()
-        device_ms.append((time.perf_counter() - t) * 1e3)
-        results = det.collect(pending)
-        wall.append((time.perf_counter() - t) * 1e3)
-        raw = pending.out
-    launches = {name: k.launches for name, k in kernels.items()}
+    t = time.perf_counter()
+    pending = det.dispatch(images)         # warm-up and capture, then the replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    results, raw = det.collect(pending), pending.out
     peak = torch.cuda.max_memory_allocated(dev)
+    # what the graph keeps: its memory pool and static buffers (the
+    # warm-up's cached blocks released)
+    torch.cuda.empty_cache()
+    graph_bytes = torch.cuda.memory_reserved(dev) - reserved
+    launches = {name: k.launches for name, k in kernels.items()}
+    captures = det.programs[0].captures
+    if captures != 1 or launches != {k: 2 * n for k, n in ONE_DETECT.items()}:
+        raise AssertionError(f"captures {captures}, wrapper launches {launches}: one "
+                             "warm-up and one capture of NMS 1 / RoIAlign 2 / backward 0")
 
-    if launches != {"nms": calls, "roi_align": 2 * calls, "roi_align_backward": 0}:
-        raise AssertionError(f"kernel launches on the main path: {launches}")
+    # bit for bit against the eager model on the same inputs, after the
+    # capture: the first call, three replays on other images, and two
+    # batches in flight (dispatch, dispatch, collect, collect); only the
+    # eager calls move the wrappers' counters
+    eager_calls = 0
+
+    def eager_of(imgs):
+        nonlocal eager_calls
+        eager_calls += 1
+        return eager_dispatch(det, imgs)
+
+    if not outputs_equal(raw, eager_of(images).out):
+        raise AssertionError(f"{dtype} batch {batch}: the graphed detect differs from eager")
+    for i, other in enumerate(sets[1:]):
+        if not outputs_equal(det.dispatch(other).out, eager_of(other).out):
+            raise AssertionError(f"{dtype} batch {batch}: replay {i + 1} differs from eager")
+    in_flight = [det.dispatch(other) for other in sets[1:3]]
+    for other, got in zip(sets[1:3], [det.collect(p) for p in in_flight]):
+        if not same_results(got, det.collect(eager_of(other))):
+            raise AssertionError(f"{dtype} batch {batch}: a pipelined batch differs")
+    replay_launches = launches_per_call(lambda: det.dispatch(images), 3)
+    wrapper_launches = {n: k.launches - launches[n] for n, k in kernels.items()}
+    if (replay_launches != ONE_DETECT or det.programs[0].captures != 1
+            or wrapper_launches != {k: eager_calls * n for k, n in ONE_DETECT.items()}):
+        raise AssertionError(f"launches per replay {replay_launches} (want {ONE_DETECT}), "
+                             f"captures {det.programs[0].captures}, wrapper launches "
+                             f"{wrapper_launches} over {eager_calls} eager calls")
+
+    # graphed and eager side by side, in turns
+    eager = lambda: eager_dispatch(det, images)          # noqa: E731
+    rec = {f"{k}_{w}": [] for k in ("graphed", "eager") for w in ("dispatch_ms", "wall_ms")}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for order in (("graphed", "eager"), ("eager", "graphed")) * 2:
+        for kind in order:
+            t = time.perf_counter()
+            p = det.dispatch(images) if kind == "graphed" else eager()
+            torch.cuda.synchronize()
+            t_sync = time.perf_counter()
+            det.collect(p)
+            rec[f"{kind}_dispatch_ms"].append((t_sync - t) * 1e3)
+            rec[f"{kind}_wall_ms"].append((time.perf_counter() - t) * 1e3)
+    steady_peak = torch.cuda.max_memory_allocated(dev)
+    profiles = {kind: kernel_times(fn) for kind, fn in
+                (("graphed", lambda: det.dispatch(images)), ("eager", eager))}
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager()
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated(dev)
+
     d = cfg.detection_max_instances
     m2 = 2 * cfg.mask_pool_size
-    if tuple(raw.detections.shape) != (2, d, 6) or tuple(raw.masks.shape) != (2, d, m2, m2, 2):
+    if (tuple(raw.detections.shape) != (batch, d, 6)
+            or tuple(raw.masks.shape) != (batch, d, m2, m2, 2)):
         raise AssertionError(f"shapes {tuple(raw.detections.shape)} {tuple(raw.masks.shape)}")
     if not (torch.isfinite(raw.detections).all() and torch.isfinite(raw.masks).all()):
         raise AssertionError("non-finite outputs")
     n_det = [len(r["scores"]) for r in results]
     if min(n_det) == 0 or any(r["masks"].shape != (size, size, k) for r, k in zip(results, n_det)):
         raise AssertionError(f"detections per image {n_det}")
-    out = dict(dtype=dtype, batch=2, image=size, calls=calls,
-               ms_per_detect=statistics.median(wall),
-               device_ms_per_detect=statistics.median(device_ms), setup_s=setup_s,
-               peak_mem_bytes=int(peak), launches=launches, detections=n_det)
+    side = {kind: dict(dispatch_to_sync_ms=statistics.median(rec[f"{kind}_dispatch_ms"]),
+                       wall_ms=statistics.median(rec[f"{kind}_wall_ms"]),
+                       host_launches_per_detect=profiles[kind]["host_launches"],
+                       host_launch_calls=profiles[kind]["host_launch_calls"],
+                       device_kernels_per_detect=profiles[kind]["n_kernel_launches"],
+                       kernel_ms=profiles[kind]["kernel_ms_total"],
+                       span_ms=profiles[kind]["span_ms"],
+                       busy_share=profiles[kind]["busy_share"])
+            for kind in ("graphed", "eager")}
+    out = dict(dtype=dtype, batch=batch, image=size, setup_s=setup_s,
+               capture_s=capture_s, captures=captures,
+               bit_equal_to_eager={"first": True, "replays": 3, "pipelined": 2},
+               launches=launches, launches_per_replay=replay_launches,
+               ms_per_detect=side["graphed"]["wall_ms"],
+               device_ms_per_detect=side["graphed"]["dispatch_to_sync_ms"],
+               graphed=side["graphed"], eager=side["eager"],
+               peak_mem_bytes=int(peak), steady_peak_mem_bytes=int(steady_peak),
+               eager_peak_mem_bytes=int(eager_peak), graph_reserved_bytes=int(graph_bytes),
+               reserved_bytes=int(torch.cuda.memory_reserved(dev)), detections=n_det)
     emit({"phase": "main_path", **out})
     # phase 13 serves the float32 detector's weights and holds its results
     return dict(out, detector=det, images=images, results=results, raw=raw)
@@ -627,17 +749,22 @@ def pixel_iou(a, b):
     return inter / np.maximum(area_a + area_b - inter, 1e-9)
 
 
+MAIN_PATHS = (("float32", 2), ("bfloat16", 2), ("float32", 8), ("bfloat16", 8))
+
+
 def main_paths(dev):
-    """Phase 4: ``Detector.detect`` at full width in float32 and in
-    bfloat16 on the same seeded images and weights; for bfloat16, the share
-    of float32's top-100 boxes it also keeps at IoU >= 0.9 and the largest
+    """Phase 4: ``Detector.detect`` at full width, graphed, against the
+    eager model, at batch 2 and 8 in float32 and in bfloat16 on the same
+    seeded images and weights; at batch 2, for bfloat16, the share of
+    float32's top-100 boxes it also keeps at IoU >= 0.9 and the largest
     difference of the raw mask outputs on those pairs (printed, not
     asserted: bfloat16 is another rounding of the same function)."""
     paths = {}
-    for dtype in ("float32", "bfloat16"):
-        paths[dtype] = main_path(dev, dtype)
-        if dtype != "float32":
-            paths[dtype].pop("detector")
+    for dtype, batch in MAIN_PATHS:
+        key = dtype if batch == 2 else f"{dtype}_b{batch}"
+        paths[key] = main_path(dev, dtype, batch)
+        if key != "float32":
+            paths[key].pop("detector")
             torch.cuda.empty_cache()
     f32, bf16 = paths["float32"], paths["bfloat16"]
     kept, mask_diff = [], 0.0
@@ -652,9 +779,13 @@ def main_paths(dev):
             mask_diff = max(mask_diff, float(diff))
     emit({"phase": "main_path", "dtype": "bfloat16_vs_float32",
           "top100_kept_at_iou_0.9": kept, "max_mask_abs_diff_on_kept": mask_diff,
-          "device_ms_per_detect": {k: p["device_ms_per_detect"] for k, p in paths.items()},
-          "ms_per_detect": {k: p["ms_per_detect"] for k, p in paths.items()},
-          "peak_mem_bytes": {k: p["peak_mem_bytes"] for k, p in paths.items()}})
+          **{f"{kind}_{metric}": {k: p[kind][metric] for k, p in paths.items()}
+             for kind in ("graphed", "eager")
+             for metric in ("dispatch_to_sync_ms", "wall_ms", "host_launches_per_detect",
+                            "busy_share")},
+          "peak_mem_bytes": {k: p["peak_mem_bytes"] for k, p in paths.items()},
+          "graph_reserved_bytes": {k: p["graph_reserved_bytes"] for k, p in paths.items()},
+          "eager_peak_mem_bytes": {k: p["eager_peak_mem_bytes"] for k, p in paths.items()}})
     return paths
 
 
@@ -799,16 +930,18 @@ def eval_path(dev, tmp):
     args = evaluate_args(root, biased_checkpoint(config, os.path.join(tmp, "eval_logs")),
                          batch, dev)
     dataset, coco, ids = cli.load_eval_dataset(args)
-    detector = cli.make_detector(args, config)
-    setup_s = time.perf_counter() - t0
-    cli.predict(detector, dataset, ids[:batch], batch, progress=False)   # warm-up
-    torch.cuda.synchronize()
-
-    batches = 2 * len(range(0, len(ids), batch))
     kernels = {"nms": NMS_KERNEL, "roi_align": ROI_ALIGN_KERNEL,
                "roi_align_backward": ROI_ALIGN_BACKWARD_KERNEL}
     for k in kernels.values():
         k.launches = 0
+    detector = cli.make_detector(args, config)
+    setup_s = time.perf_counter() - t0
+    # warm-up: the program's warm-up and capture (the wrappers' launches
+    # of this path), then its replay
+    cli.predict(detector, dataset, ids[:batch], batch, progress=False)
+    torch.cuda.synchronize()
+
+    batches = 2 * len(range(0, len(ids), batch))
     torch.cuda.reset_peak_memory_stats(dev)
     walls, passes = [], []
     with timed_loop(cli, detector) as rec:
@@ -817,9 +950,11 @@ def eval_path(dev, tmp):
             passes.append(cli.predict(detector, dataset, ids, batch, progress=False))
             walls.append(time.perf_counter() - t)
     launches = {name: k.launches for name, k in kernels.items()}
+    captures = detector.programs[0].captures
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches != {"nms": batches, "roi_align": 2 * batches, "roi_align_backward": 0}:
-        raise AssertionError(f"kernel launches over {batches} evaluate batches: {launches}")
+    if captures != 1 or launches != {k: 2 * n for k, n in ONE_DETECT.items()}:
+        raise AssertionError(f"captures {captures}, wrapper launches over {batches} evaluate "
+                             f"batches {launches}: one warm-up and one capture")
     results = passes[-1]
     if passes[0] != results:
         raise AssertionError("two passes over the same images gave other results")
@@ -839,6 +974,10 @@ def eval_path(dev, tmp):
             busy_ms += ms
         elif e.name.startswith("cuda"):
             runtime_ms[e.name] = runtime_ms.get(e.name, 0.0) + ms
+    # the replays' kernels, by name: NMS once, RoIAlign twice per batch
+    per_batch = csrc_launches_in(prof, batches // 2)
+    if per_batch != ONE_DETECT or detector.programs[0].captures != 1:
+        raise AssertionError(f"replayed launches per evaluate batch {per_batch}")
 
     t = time.perf_counter()
     stats = cli.score(coco, dataset, ids, results, "COCOA", verbose=False)
@@ -865,7 +1004,8 @@ def eval_path(dev, tmp):
                sweep_s=sweep_s, detections_per_image=statistics.mean(per_image),
                both_all_ap=float(stats["both/all"][0]),
                both_all_ar100=float(stats["both/all"][5]),
-               peak_mem_bytes=int(peak), batches=batches, launches=launches)
+               peak_mem_bytes=int(peak), batches=batches, captures=captures,
+               launches=launches, launches_per_batch=per_batch)
     emit({"phase": "eval", **out})
     return dict(out, root=root, model=args.model)
 
@@ -1406,12 +1546,12 @@ def device_prep_check(dev, tr):
 def train_device_prep(dev, tmp, tr, prep):
     """Phase 11: phase 9's heads stage with ``--device_prep`` (the same
     weights, data, steps and timings, the targets built on the card), in
-    turns with the host loader: host, device prep, device prep, host, twice.
-    Emits each run and both loaders' numbers over their four runs (step
+    turns with the host loader: host, device prep, device prep, host.
+    Emits each run and both loaders' numbers over their two runs (step
     medians over the timed steps, means of the rest)."""
     common = ["--dataset", tr["root"], "--batch_size", "2", "--seed", "0", "--device", str(dev),
               "--logs", os.path.join(tmp, "train_device_prep_logs"), "--model", tr["model"]]
-    order = ("host", "device_prep", "device_prep", "host") * 2
+    order = ("host", "device_prep", "device_prep", "host")
     runs = [(f"{kind}_{i}", "heads", 7, ["--device_prep"] if kind == "device_prep" else [])
             for i, kind in enumerate(order)]
     stages, _, loaders = run_train_stages(dev, runs, common)
@@ -2022,7 +2162,9 @@ def serving_worker(artifact: str, io_dir: str) -> int:
     ``detect`` against phase 4's ``Detector.detect`` (bit for bit), a
     one-image request (padded to 2) against the ``Detector``'s row of a
     batch of that image twice, a three-image request refused, the launches
-    of one serving ``detect`` and its device and wall ms."""
+    of one serving ``detect`` (the program captured once at the first; a
+    replay calls no wrapper and launches NMS 1 / RoIAlign 2 / backward 0 on
+    the device) and its device and wall ms."""
     import pickle
 
     from sln_amodal_tpu_torch.serve import ServingDetector
@@ -2035,15 +2177,19 @@ def serving_worker(artifact: str, io_dir: str) -> int:
     served = ServingDetector.load(artifact)
     load_s = time.perf_counter() - t
     images = ref["images"]
-    served.detect(images)                   # warm-up: cuDNN picks its algorithms
-    torch.cuda.synchronize()
     kernels = train_kernels()
     for k in kernels:
         k.launches = 0
-    got = served.detect(images)
+    served.detect(images)           # the program's warm-up and capture, its replay
+    torch.cuda.synchronize()
     launches = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
-    if launches != {"nms": 1, "roi_align": 2, "roi_align_backward": 0}:
-        raise AssertionError(f"serving: launches per detect {launches}")
+    got = served.detect(images)
+    replayed = {n: k.launches - launches[n] for n, k in zip(KERNEL_NAMES, kernels)}
+    per_detect = launches_per_call(lambda: served.dispatch(images), 3)
+    if (launches != {k: 2 * n for k, n in ONE_DETECT.items()} or any(replayed.values())
+            or per_detect != ONE_DETECT or [p.captures for p in served.programs] != [1]):
+        raise AssertionError(f"serving: wrapper launches {launches} at the capture, "
+                             f"{replayed} in a replay; replayed per detect {per_detect}")
     if not same_results(got, ref["results"]):
         raise AssertionError("serving: the artifact's detect differs from Detector.detect")
     if not same_results(served.detect(images[:1]), ref["one"]):
@@ -2059,7 +2205,8 @@ def serving_worker(artifact: str, io_dir: str) -> int:
     leaked = sorted(n for n in sys.modules if n.startswith("sln_amodal_tpu_torch.models"))
     if leaked:
         raise AssertionError(f"serving: the loading process imported {leaked}")
-    out = dict(load_s=load_s, launches=launches, results_bit_equal=True,
+    out = dict(load_s=load_s, launches=launches, launches_per_detect=per_detect,
+               results_bit_equal=True,
                one_image_bit_equal=True, three_images_refused=True, **times,
                models_imported=False,
                detections=[len(r["scores"]) for r in got])
@@ -2286,7 +2433,8 @@ def parity_path(dev, tmp):
     the ``.pth`` that ``cli.train train`` saves and the release layout (the
     ``.pth`` without ``GLM_modual.*`` keys, the standalone
     ``deeplabv2.pth``) give identical sweeps with AR@100 > 0, and each
-    evaluate batch launches NMS once, RoIAlign twice, the backward never.
+    evaluate batch launches NMS once, RoIAlign twice, the backward never
+    (two warm-ups and two replays on the device).
     Then ``cli.test_images`` writes the reference pickles of 2 of the images
     and ``cli.parity_check`` on the same ``.pth`` finds 2/2 within tolerance
     (exit 0), and exits 1 on a copy with one box moved by 3 px."""
@@ -2295,16 +2443,25 @@ def parity_path(dev, tmp):
 
     from sln_amodal_tpu_torch.cli import parity_check, run_parity, test_images
 
+    from torch.profiler import ProfilerActivity, profile
+
     kernels = train_kernels()
     for k in kernels:
         k.launches = 0
     t = time.perf_counter()
-    dry = run_parity.main(["--dry_run", os.path.join(tmp, "parity"), "--limit", "8",
-                           "--eval_batch", "8", "--device", str(dev)])
+    # two evaluate passes of one batch, each on a Detector of its own: a
+    # warm-up and a capture (the wrappers' launches), then one replay each
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dry = run_parity.main(["--dry_run", os.path.join(tmp, "parity"), "--limit", "8",
+                               "--eval_batch", "8", "--device", str(dev)])
+        torch.cuda.synchronize()
     dry_s = time.perf_counter() - t
     launches = {n: k.launches for n, k in zip(KERNEL_NAMES, train_kernels())}
-    if launches != {"nms": 2, "roi_align": 4, "roi_align_backward": 0}:
-        raise AssertionError(f"dry run launches over 2 evaluate batches: {launches}")
+    on_device = csrc_launches_in(prof, 1)
+    if (launches != {k: 4 * n for k, n in ONE_DETECT.items()}
+            or on_device != {k: 4 * n for k, n in ONE_DETECT.items()}):
+        raise AssertionError(f"dry run over 2 evaluate batches: wrapper launches {launches}, "
+                             f"on the device {on_device} (2 warm-ups and 2 replays)")
     if dry.native != dry.release or dry.native["both/all"][5] <= 0:
         raise AssertionError(f"dry run sweeps {dry.native['both/all']} / "
                              f"{dry.release['both/all']}")
@@ -2340,7 +2497,7 @@ def parity_path(dev, tmp):
     out = dict(images=8, eval_batch=8, dtype="bfloat16", dry_run_s=dry_s,
                sweep_s=dry.seconds, sweeps_identical=True,
                both_all=dry.native["both/all"], launches=launches,
-               launches_per_batch={k: v // 2 for k, v in launches.items()},
+               device_launches=on_device,
                detections_per_image=detections,
                test_images_s=test_images_s, parity_check_s=parity_check_s,
                parity_check_exit=status, moved_box_exit=perturbed_status)
@@ -2466,22 +2623,31 @@ def main() -> int:
     # the batch-8 train step's shapes (phase 15), as the step pads them
     backward_b8 = {str(dtype): check_roi_align_backward(dev, 8, dtype, layouts=("sampled",))
                    for dtype in (torch.float32, torch.bfloat16)}
-    paths = main_paths(dev)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    paths = timed("main_path", main_paths, dev)
     path = paths["float32"]
     with tempfile.TemporaryDirectory() as tmp:
-        reference_check(dev)
-        reference_eval(dev, tmp)
-        ev = eval_path(dev, tmp)
-        reference_train(dev, tmp)
-        convergence(dev, tmp)
-        tr = train_path(dev, tmp)
-        prep = device_prep_check(dev, tr)
-        trp = train_device_prep(dev, tmp, tr, prep)
-        dp = data_parallel(dev, tmp, tr, ev)
-        srv = serving(dev, tmp, path, ev, {"nms": nms, "roi_align": roi,
-                                           "roi_align_backward": backward})
-        par = parity_path(dev, tmp)
-        soak = soak_path(dev, tmp)
+        timed("reference", reference_check, dev)
+        timed("reference_eval", reference_eval, dev, tmp)
+        ev = timed("eval", eval_path, dev, tmp)
+        timed("reference_train", reference_train, dev, tmp)
+        timed("convergence", convergence, dev, tmp)
+        tr = timed("train", train_path, dev, tmp)
+        prep = timed("device_prep", device_prep_check, dev, tr)
+        trp = timed("train_device_prep", train_device_prep, dev, tmp, tr, prep)
+        dp = timed("data_parallel", data_parallel, dev, tmp, tr, ev)
+        srv = timed("serving", serving, dev, tmp, path, ev,
+                    {"nms": nms, "roi_align": roi, "roi_align_backward": backward})
+        par = timed("parity", parity_path, dev, tmp)
+        soak = timed("train_soak", soak_path, dev, tmp)
+    emit({"phase": "seconds", **phase_s})
 
     # one line per kernel: times at the evaluate path's shapes (batch 8) for
     # the forward kernels, at the train step's (batch 2) for the backward,
@@ -2506,6 +2672,8 @@ def main() -> int:
             "replaces": f"sln_amodal_tpu/ops/{replaces}", "launches": main_run["launches"][key],
             "launches_by_path": {"detect_float32": path["launches"][key],
                                  "detect_bfloat16": paths["bfloat16"]["launches"][key],
+                                 "detect_float32_b8": paths["float32_b8"]["launches"][key],
+                                 "detect_bfloat16_b8": paths["bfloat16_b8"]["launches"][key],
                                  "evaluate": ev["launches"][key],
                                  "train": tr["launches"][key],
                                  "train_device_prep": trp["launches"][key],
@@ -2514,6 +2682,10 @@ def main() -> int:
                                  "serving": srv["launches"][key],
                                  "parity": par["launches"][key],
                                  "train_soak": soak["launches"][key]},
+            # per replay of the captured graph, by kernel name on the device
+            "replayed_launches": {"detect": path["launches_per_replay"][key],
+                                  "evaluate_batch": ev["launches_per_batch"][key],
+                                  "serving": srv["b"]["launches_per_detect"][key]},
             "dtype": "float32 boxes" if k32 is None else "bfloat16",
             # the backward's times are the "sampled" layout's, the others' beside
             **({"layout": "sampled",

@@ -3,8 +3,10 @@ wrapper around :class:`~sln_amodal_tpu_torch.models.sln.SLNAmodal`.
 
 The host molds inputs (PIL resize, uint8 upload; the mean pixel is
 subtracted on the device) and unmolds outputs (box rescale, mask paste).
-With a mesh (``parallel/mesh.py``) each batch is split over its devices,
-one replica of the model on each.
+On the card the device program runs as one captured CUDA graph per shape
+(``compiled.py``), as the JAX package runs it as one jitted program. With a
+mesh (``parallel/mesh.py``) each batch is split over its devices, one
+replica of the model on each.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .compiled import CapturedProgram, CudaGraphs
 from .config import Config
 from .device import resolve_device
 from .parallel.mesh import make_mesh, shard_batch
@@ -27,6 +30,17 @@ class PendingDetect(NamedTuple):
     images: List[np.ndarray]
     windows: np.ndarray
     out: Any
+
+
+def _program(model, mean: torch.Tensor, detect_only: bool):
+    """The device program of one replica: uint8 images and float32 windows
+    in, the model's outputs out."""
+    run = model.infer_detect_only if detect_only else model.infer
+
+    def program(images_u8: torch.Tensor, windows: torch.Tensor):
+        return run(images_u8.to(torch.float32) - mean, windows)
+
+    return program
 
 
 class Detector:
@@ -50,6 +64,14 @@ class Detector:
     ``dispatch`` pads a ragged batch to a multiple of the mesh size by
     repeating its last image, then launches each device's row block from
     this thread; ``collect`` walks only the real images.
+
+    On a card, each replica's program (the mean subtraction and the model's
+    ``infer_detect_only`` or ``infer``) is captured as a CUDA graph at the
+    first ``dispatch`` of each shape and replayed after that
+    (``compiled.CapturedProgram``, one per replica in ``programs``; the
+    graphs of one ``Detector`` share a memory pool). A capture that fails
+    raises. On the CPU the program runs eagerly. ``SLNAmodal.infer`` /
+    ``infer_detect_only``, called directly, stay the eager graph.
     """
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
@@ -74,13 +96,16 @@ class Detector:
         self.last_global_label = None
         self._mean = [torch.tensor(config.mean_pixel, dtype=torch.float32, device=dev)
                       for dev in devices]
+        graphs = CudaGraphs()
+        self.programs = [
+            CapturedProgram(_program(model, mean, detect_only), graphs)
+            for model, mean in zip(self._replicas, self._mean)]
 
     def _launch(self, replica: int, images_u8: torch.Tensor, windows: torch.Tensor):
-        """The graph of replica ``replica`` on its block (uint8 images,
-        float32 windows, on its device)."""
-        model = self._replicas[replica]
-        run = model.infer_detect_only if self.detect_only else model.infer
-        return run(images_u8.to(torch.float32) - self._mean[replica], windows)
+        """The program of replica ``replica`` on its block (uint8 images,
+        float32 windows, on its device): a graph replay on a card."""
+        key = (self.config.compute_dtype, self.detect_only)
+        return self.programs[replica](key, images_u8, windows)
 
     def dispatch(self, images: List[np.ndarray]) -> PendingDetect:
         """Mold + launch the device work without waiting for it (CUDA

@@ -11,6 +11,23 @@ import torch
 
 LOG_DELTA_CLIP = 10.0  # guards exp overflow -> inf-inf NaN boxes
 
+_STD_DEVS = {}
+
+
+def std_dev_tensor(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The box-delta standard deviations ``values`` as a tensor, kept per
+    (values, dtype, device): uploaded once, so that a CUDA graph capture of
+    the detect path, after its warm-up, makes no host-to-device copy. A
+    ``torch.export`` trace's stand-in tensor (a fake tensor) is not kept."""
+    key = (tuple(float(v) for v in values), dtype, torch.device(device))
+    std = _STD_DEVS.get(key)
+    if std is None:
+        with torch.inference_mode(False):
+            std = torch.tensor(key[0], dtype=dtype, device=device)
+        if type(std) is torch.Tensor:
+            _STD_DEVS[key] = std
+    return std
+
 
 def apply_box_deltas(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     """Apply (dy, dx, log dh, log dw) refinements to boxes [..., 4]."""

@@ -8,12 +8,17 @@ seeded uint8 images, with random seeded weights shaped as ``chip_smoke.py``
 shapes them, so the mask head runs over 100 real detections per image.
 Prints JSON lines:
 
-- ``stages``: the median ms of each stage of ``SLNAmodal._infer_impl`` (the
-  same calls in the same order, with CUDA events between them), of the whole
-  ``dispatch`` (to ``synchronize``) and of the host unmold in ``collect``;
-- ``kernels``: device time by kernel over one ``dispatch`` from
-  ``torch.profiler``, the largest first, and the device's busy share of
-  that call's span.
+- ``stages``: the median ms of each stage of ``SLNAmodal._infer_impl`` run
+  eagerly (the same calls in the same order, with CUDA events between
+  them), of the whole ``dispatch`` (to ``synchronize``) on the captured
+  graph (``detect_dispatch_to_sync``) and on the eager model
+  (``eager_dispatch_to_sync``), and of the host unmold in ``collect``;
+- ``kernels``: per path (``graphed``: the replay of the captured graph that
+  ``Detector.dispatch`` runs on a card; ``eager``: ``infer_detect_only``
+  called directly), device time by kernel over one dispatch from
+  ``torch.profiler``, the largest first, the device's busy share of that
+  call's span and the host's launch calls (``host_launches``: the runtime
+  calls that enqueue device work).
 
 Needs a card; there is no CPU fallback.
 """
@@ -32,8 +37,14 @@ import torch
 from .config import Config
 from .convert import init_params
 from .detect.detection import refine_detections
-from .infer import Detector
+from .infer import Detector, PendingDetect
 from .utils.image import mold_inputs
+
+# the runtime calls that enqueue work on the device, as torch.profiler
+# names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
 
 
 def make_detector(cfg: Config, seed: int, device) -> Detector:
@@ -46,6 +57,18 @@ def make_detector(cfg: Config, seed: int, device) -> Detector:
         sd[key].zero_()
     sd["classifier.linear_class.bias"][1] = 8.0
     return Detector(cfg, sd, device=device)
+
+
+def eager_dispatch(det: Detector, images) -> PendingDetect:
+    """The eager graph, ``SLNAmodal.infer_detect_only`` called directly, on
+    the inputs ``det.dispatch`` gives its program (the uint8 upload, then
+    the mean subtracted on the card): a ``PendingDetect`` that
+    ``det.collect`` takes. The reference of the captured graph."""
+    molded, windows = mold_inputs(images, det.config)
+    x = torch.from_numpy(molded).to(det.device).to(torch.float32) - det._mean[0]
+    out = det.model.infer_detect_only(
+        x, torch.as_tensor(windows, dtype=torch.float32, device=det.device))
+    return PendingDetect(images=images, windows=windows, out=out)
 
 
 def stage_times(det: Detector, x: torch.Tensor, windows: torch.Tensor) -> dict:
@@ -89,9 +112,10 @@ def stage_times(det: Detector, x: torch.Tensor, windows: torch.Tensor) -> dict:
 
 
 def kernel_times(fn, match=()) -> dict:
-    """Device time by kernel name over one call of ``fn``, and the busy
-    share (the union of kernel intervals over the span from the first
-    kernel's start to the last one's end); ``match``: name fragments whose
+    """Device time by kernel name over one call of ``fn``, the busy share
+    (the union of kernel intervals over the span from the first kernel's
+    start to the last one's end) and the host's launch calls
+    (``HOST_LAUNCH_CALLS``, by name); ``match``: name fragments whose
     kernels' ms and launches are summed under ``matched``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -103,6 +127,10 @@ def kernel_times(fn, match=()) -> dict:
              if e.device_type == DeviceType.CUDA]
     if not spans:
         raise RuntimeError("torch.profiler recorded no device activity")
+    calls = defaultdict(int)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA and e.name in HOST_LAUNCH_CALLS:
+            calls[e.name] += 1
     by_name = defaultdict(float)
     for s, e, name in spans:
         by_name[name] += (e - s) / 1e3
@@ -121,6 +149,7 @@ def kernel_times(fn, match=()) -> dict:
                    "launches": sum(m in n for _, _, n in spans)} for m in match}
     return {"kernel_ms_total": sum(by_name.values()), "span_ms": span / 1e3,
             "busy_share": busy / span, "n_kernel_launches": len(spans),
+            "host_launches": sum(calls.values()), "host_launch_calls": dict(calls),
             "top": [{"name": n[:120], "ms": t} for n, t in top[:20]], "matched": matched}
 
 
@@ -140,27 +169,33 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
     images = [rng.randint(0, 256, (cfg.image_size, cfg.image_size, 3), np.uint8)
               for _ in range(args.batch)]
-    det.detect(images)                     # warm-up: cuDNN picks its algorithms
+    det.detect(images)                     # warm-up and capture
 
     molded, windows = mold_inputs(images, cfg)
     x = torch.from_numpy(molded).to(dev).to(torch.float32) - det._mean[0]
     w = torch.as_tensor(windows, dtype=torch.float32, device=dev)
 
+    def eager():
+        return eager_dispatch(det, images)
+
     stages = defaultdict(list)
     for _ in range(args.repeats):
         for name, ms in stage_times(det, x, w).items():
             stages[name].append(ms)
-        t = time.perf_counter()
-        pending = det.dispatch(images)
-        torch.cuda.synchronize()
-        t_dispatch = time.perf_counter()
-        det.collect(pending)
-        stages["detect_dispatch_to_sync"].append((t_dispatch - t) * 1e3)
-        stages["host_collect_unmold"].append((time.perf_counter() - t_dispatch) * 1e3)
+        for key, dispatch in (("detect", lambda: det.dispatch(images)), ("eager", eager)):
+            t = time.perf_counter()
+            pending = dispatch()
+            torch.cuda.synchronize()
+            t_dispatch = time.perf_counter()
+            det.collect(pending)
+            stages[f"{key}_dispatch_to_sync"].append((t_dispatch - t) * 1e3)
+            if key == "detect":
+                stages["host_collect_unmold"].append((time.perf_counter() - t_dispatch) * 1e3)
     print(json.dumps({"stages": {k: statistics.median(v) for k, v in stages.items()},
                       "batch": args.batch, "repeats": args.repeats,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
-    print(json.dumps({"kernels": kernel_times(lambda: det.dispatch(images))}), flush=True)
+    print(json.dumps({"kernels": {"graphed": kernel_times(lambda: det.dispatch(images)),
+                                  "eager": kernel_times(eager)}}), flush=True)
     return 0
 
 

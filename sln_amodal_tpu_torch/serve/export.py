@@ -37,6 +37,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from .. import ops  # noqa: F401  (registers the kernels' custom ops before a load)
+from ..compiled import CapturedProgram, CudaGraphs
 from ..config import Config
 from ..device import resolve_device
 from ..infer import Detector, PendingDetect
@@ -99,8 +100,14 @@ def export_detector(
     s = config.image_size
     example = (torch.zeros((per_replica, s, s, 3), dtype=torch.uint8, device=dev),
                torch.zeros((per_replica, 4), dtype=torch.float32, device=dev))
+    graph = _ServedGraph(model, detect_only)
     with torch.no_grad():
-        program = torch.export.export(_ServedGraph(model, detect_only), example, strict=False)
+        # one eager call first: the constants the graph makes at first use
+        # (the bfloat16 resize weights, the box std devs) are then tensors
+        # on the device that the program holds, not host values it would
+        # upload at every call (an upload that a CUDA graph cannot capture)
+        graph(*example)
+        program = torch.export.export(graph, example, strict=False)
 
     os.makedirs(out_dir, exist_ok=True)
     torch.export.save(program, os.path.join(out_dir, MODEL_FILE))
@@ -136,7 +143,9 @@ class ServingDetector(Detector):
     request of fewer images than the artifact's batch is padded up by
     repeating its last image (the pad rows are dropped before unmolding); a
     larger one raises. With a mesh, each device runs the per-replica
-    program on its block of the batch."""
+    program on its block of the batch. On a card each replica's program is
+    captured as a CUDA graph at its first ``dispatch`` and replayed after
+    that, as in :class:`Detector` (``programs``)."""
 
     def __init__(self, config: Config, programs: Sequence, device: torch.device, batch: int,
                  detect_only: bool, outputs: Sequence[str], mesh=None):
@@ -146,7 +155,8 @@ class ServingDetector(Detector):
         self.detect_only = detect_only
         self.last_global_label = None
         self.batch = batch
-        self._programs = list(programs)
+        graphs = CudaGraphs()
+        self.programs = [CapturedProgram(p, graphs) for p in programs]
         self._outputs = collections.namedtuple("ServedOutputs", list(outputs))
 
     @classmethod
@@ -201,11 +211,12 @@ class ServingDetector(Detector):
         per-replica batch by repeating the last row; the pad rows of the
         outputs are dropped."""
         rows = images_u8.shape[0]
-        pad = self.batch // len(self._programs) - rows
+        pad = self.batch // len(self.programs) - rows
         if pad:
             images_u8 = torch.cat([images_u8, images_u8[-1:].expand(pad, *images_u8.shape[1:])])
             windows = torch.cat([windows, windows[-1:].expand(pad, -1)])
-        out = self._programs[replica](images_u8, windows)
+        out = self.programs[replica]((self.config.compute_dtype, self.detect_only),
+                                     images_u8, windows)
         return self._outputs(*(o[:rows] for o in out))
 
 

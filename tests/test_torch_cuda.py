@@ -385,7 +385,10 @@ def test_detector_on_card_matches_cpu(cuda_device):
     gpu = Detector(cfg, sd, device=cuda_device)
     counts = NMS_KERNEL.launches, ROI_ALIGN_KERNEL.launches
     det_gpu, masks_gpu = gpu._fetch(gpu.dispatch(images))
-    assert (NMS_KERNEL.launches, ROI_ALIGN_KERNEL.launches) == (counts[0] + 1, counts[1] + 2)
+    # the first dispatch warms the program up and captures it: each calls
+    # the wrappers once (the replay launches the captured kernels)
+    assert (NMS_KERNEL.launches, ROI_ALIGN_KERNEL.launches) == (counts[0] + 2, counts[1] + 4)
+    assert gpu.programs[0].captures == 1
     cpu = Detector(cfg, sd, device="cpu")
     det_cpu, masks_cpu = cpu._fetch(cpu.dispatch(images))
     assert (det_cpu[..., 4] > 0).sum() > 0
@@ -412,7 +415,9 @@ def test_mesh_detector_two_replicas_on_one_card(cuda_device):
     before = NMS_KERNEL.launches
     pending = mesh.dispatch(images)
     det_m, masks_m = mesh._fetch(pending)
-    assert NMS_KERNEL.launches == before + 2 and det_m.shape[0] == 4
+    # each replica warms up and captures its graph (NMS once in each)
+    assert NMS_KERNEL.launches == before + 4 and det_m.shape[0] == 4
+    assert [p.captures for p in mesh.programs] == [1, 1]
     assert (det[..., 4] > 0).sum() > 0
     np.testing.assert_array_equal(det_m[:3, ..., :5], det[..., :5])
     np.testing.assert_allclose(det_m[:3, ..., 5], det[..., 5], rtol=1e-6)
@@ -475,3 +480,141 @@ def test_nccl_world_one_step_equals_plain_step(cuda_device):
         assert torch.equal(grouped[1][k], v), k
         moved += int(not torch.equal(v, sd[k]))
     assert moved > 0
+
+
+# ------------------------------------------------ the captured detect graph --
+
+GRAPH = dict(SMALL, glm_scales=(), detection_max_instances=8, param_dtype="float32")
+
+
+def graph_detector(cuda_device, dtype, **kwargs):
+    cfg = Config(**dict(GRAPH, compute_dtype=dtype))
+    return Detector(cfg, detecting_weights(Config(**SMALL)), device=cuda_device, **kwargs)
+
+
+def seeded_images(seed, n=2):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 255, (128, 128, 3), np.uint8) for _ in range(n)]
+
+
+def eager_outputs(det, images, replica=0):
+    """The model's eager graph (``infer_detect_only`` called directly) on
+    the inputs ``dispatch`` gives the program."""
+    from sln_amodal_tpu_torch.utils.image import mold_inputs
+
+    molded, windows = mold_inputs(images, det.config)
+    dev = det._mean[replica].device
+    x = torch.from_numpy(molded).to(dev).to(torch.float32) - det._mean[replica]
+    return det._replicas[replica].infer_detect_only(
+        x, torch.as_tensor(windows, dtype=torch.float32, device=dev))
+
+
+def assert_bit_equal(got, want):
+    assert type(got) is type(want)
+    for name, g, w in zip(want._fields, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_detect_is_bit_equal_to_eager(cuda_device, dtype):
+    """The first dispatch captures; it and three replays on other images
+    equal the eager model on the same inputs, bit for bit (compared after
+    the capture); no replay captures again."""
+    det = graph_detector(cuda_device, dtype)
+    for seed in (0, 1, 2, 3):
+        images = seeded_images(seed)
+        got = det.dispatch(images).out
+        assert_bit_equal(got, eager_outputs(det, images))
+        assert det.programs[0].captures == 1
+    assert (got.det_valid.sum() > 0).item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_pipelined_dispatch_keeps_each_batch(cuda_device, dtype):
+    """dispatch A, dispatch B, collect A, collect B: each batch's own
+    results, those of ``detect`` one at a time."""
+    det = graph_detector(cuda_device, dtype)
+    a, b = seeded_images(4), seeded_images(5)
+    want = [det.detect(a), det.detect(b)]
+    pending = [det.dispatch(a), det.dispatch(b)]
+    got = [det.collect(p) for p in pending]
+    for g, w in zip(got, want):
+        for gi, wi in zip(g, w):
+            for key in ("rois", "class_ids", "scores", "masks"):
+                np.testing.assert_array_equal(gi[key], wi[key])
+    assert not np.array_equal(want[0][0]["rois"], want[1][0]["rois"])
+    assert det.programs[0].captures == 1
+
+
+def test_graphed_mesh_detector_card_listed_twice(cuda_device):
+    """Two replicas on one card: a graph each, each block of 2 bit-equal to
+    the eager model on that block and to the one-replica Detector's graph
+    at batch 2 (a batch of 4 takes other convolution kernels)."""
+    single = graph_detector(cuda_device, "float32")
+    mesh = graph_detector(cuda_device, "float32", mesh=(cuda_device, cuda_device))
+    images = seeded_images(6, 4)
+    pending = mesh.dispatch(images)
+    assert [p.captures for p in mesh.programs] == [1, 1]
+    for i, out in enumerate(pending.out):
+        block = images[2 * i:2 * i + 2]
+        assert_bit_equal(out, eager_outputs(mesh, block, replica=i))
+        assert_bit_equal(out, single.dispatch(block).out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_serving_detector_equals_graphed_detector(cuda_device, tmp_path, dtype):
+    """The artifact's program captured per replica (exported before any
+    eager run of the process's detector, so the program holds every
+    constant on the card and uploads none): the served detect equals the
+    ``Detector``'s, both on their graphs, bit for bit; a one-image request,
+    padded by repeating its image, goes into the same graph and equals the
+    ``Detector``'s row of that image twice."""
+    from sln_amodal_tpu_torch.serve import ServingDetector, export_detector
+
+    det = graph_detector(cuda_device, dtype)
+    export_detector(det.config, det.model.state_dict(), str(tmp_path), batch=2,
+                    device=cuda_device)
+    served = ServingDetector.load(str(tmp_path))
+    images = seeded_images(7)
+    for request, want in ((images, det.detect(images)), (images[:1], det.detect(images[:1] * 2)),
+                          (images, det.detect(images))):
+        got = served.detect(request)
+        assert len(got) == len(request)
+        for g, w in zip(got, want):
+            for key in ("rois", "class_ids", "scores", "masks"):
+                np.testing.assert_array_equal(g[key], w[key])
+    assert [p.captures for p in served.programs] == [1]
+
+
+def test_nms_captures_with_large_shared_memory(cuda_device):
+    """An NMS whose scan needs more than 48 KB of shared memory (its
+    attribute is set in the launch) captures and replays as it runs."""
+    from sln_amodal_tpu_torch.compiled import CapturedProgram, CudaGraphs
+
+    rng = np.random.RandomState(8)
+    boxes = torch.from_numpy(np.stack([cluster_boxes(rng, 6000)])).to(cuda_device)
+    valid = torch.ones((1, 6000), dtype=torch.bool, device=cuda_device)
+    program = CapturedProgram(lambda b, v: nms_sorted_batched(b, v, 13000, 0.7), CudaGraphs())
+    want = nms_sorted_batched(boxes, valid, 13000, 0.7)
+    for _ in range(2):
+        got = program("nms", boxes, valid)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert program.captures == 1
+
+
+def test_a_capture_that_syncs_raises(cuda_device):
+    """A program that waits for the device inside the capture makes the
+    capture raise, naming its key; nothing runs eagerly in its place, and
+    the thread's stream is the one it was before."""
+    from sln_amodal_tpu_torch.compiled import CapturedProgram, CudaGraphs
+
+    x = torch.ones(4, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device)
+    program = CapturedProgram(lambda t: (t * float(t.sum()),), CudaGraphs())
+    with pytest.raises(RuntimeError, match="shape key .*'synced'"):
+        program("synced", x)
+    assert program.captures == 0 and program.keys() == []
+    assert torch.cuda.current_stream(cuda_device) == stream
+    # the card is usable, and a capturable program captures after it
+    ok = CapturedProgram(lambda t: (t * 2,), CudaGraphs())
+    assert torch.equal(ok("ok", x)[0], x * 2) and ok.captures == 1

@@ -9,6 +9,7 @@ agree to float32 rounding, since XLA's and PyTorch's float32 exp differ in
 the last bit.
 """
 
+import functools
 import glob
 import os
 
@@ -35,6 +36,7 @@ CFG = dict(image_size=64, backbone="resnet50", glm_input_size=33,
            compute_dtype="float64", param_dtype="float64")
 
 
+@functools.lru_cache(maxsize=1)
 def detecting_variables():
     """Seeded JAX variables of ``CFG``'s model, the random heads scaled so
     the model emits real detections: RPN scores spread over (0, 1), small
@@ -92,6 +94,41 @@ def test_raw_outputs_match(detections):
     assert masks.dtype == np.float32 and masks.shape == ref_out.masks.shape
     np.testing.assert_allclose(masks, ref_out.masks, rtol=1e-5, atol=1e-6)
 
+
+
+def test_cpu_detector_never_captures(detections, monkeypatch):
+    """On the CPU, ``Detector`` runs its program eagerly: no graph is
+    captured (the capture class is replaced by one that fails), and the
+    detections are the JAX ``Detector``'s, as above, and the eager model's
+    bit for bit."""
+    from sln_amodal_tpu_torch import compiled, infer
+
+    class NoGraphs(compiled.CudaGraphs):
+        def capture(self, fn, inputs):
+            raise AssertionError("a CPU Detector captured a graph")
+
+    images, ref, out, _, _ = detections
+    monkeypatch.setattr(infer, "CudaGraphs", NoGraphs)
+    # one ATen thread: beside the other test workers, more only spin
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        port = Detector(Config(**CFG), params_from_jax(detecting_variables()), device="cpu")
+        pending = port.dispatch(images)
+        got = port.collect(pending)
+        molded, windows = infer.image_utils.mold_inputs(images, port.config)
+        eager = port.model.infer_detect_only(
+            torch.from_numpy(molded).to(torch.float32) - port._mean[0],
+            torch.as_tensor(windows, dtype=torch.float32))
+    finally:
+        torch.set_num_threads(threads)
+    assert [p.captures for p in port.programs] == [0] and port.programs[0].keys() == []
+    assert all(torch.equal(a, b) for a, b in zip(pending.out, eager))
+    for g, o, r in zip(got, out, ref):
+        for key in ("rois", "class_ids", "scores", "masks"):
+            np.testing.assert_array_equal(g[key], o[key])
+        np.testing.assert_array_equal(g["rois"], r["rois"])
+        np.testing.assert_array_equal(g["masks"], r["masks"])
 
 def test_entry_points_default_to_the_card():
     """No card and no device="cpu": the entry points raise, they do not
