@@ -82,16 +82,19 @@ Phases (each prints one JSON line):
    on 16 synthetic 1024² images with ground truth on the biased RPN's first
    proposals, from ``train_start_weights``: ``--stage heads`` 40 steps
    (its total loss printed every 8 steps), then ``--stage all`` 7 steps.
-   Per stage (the first step is warm-up):
-   median step wall and CUDA-event device ms of the steps but the first
-   and the last three, images/s, loader wait per step, busy share of the
+   Per stage (the first two steps are warm-up: the eager first call and
+   the capture): median step wall and CUDA-event device ms of the steps
+   but the first two and the last three, images/s, loader wait per step, busy share of the
    last three steps under ``torch.profiler``, peak
    memory, first and last losses (finite), positive
    ROIs per step (> 0), the mean of the valid (not padding) sampled ROIs
-   per step, and launches per step (NMS 1, RoIAlign 2, backward 2; the
-   backward's device ms in the profiled steps is its two kernels').
-   ``evaluate`` then loads the saved checkpoint on 8 of the images and
-   must detect.
+   per step, and launches per step: the steps run on ``Trainer``'s
+   captured step, so the wrappers count only the first two steps (the
+   eager first call and the capture: NMS 1, RoIAlign 2, backward 2 each)
+   and, per profiled replay, ``torch.profiler`` counts by kernel name NMS
+   1, RoIAlign 2, backward fold 2 and gather 2; the backward's device ms
+   in the profiled steps is its two kernels'. ``evaluate`` then loads the saved checkpoint on 8 of the
+   images and must detect.
 
 10. device_prep — the on-device training targets (``data/device_prep.py``) on
     2 samples of the train phase's 1024² set with augment on and fixed
@@ -104,12 +107,12 @@ Phases (each prints one JSON line):
     events), upload bytes per batch of each route and of the host loader's
     batch, runs per sample and the RLE budget.
 11. train_device_prep — ``cli.train train --stage heads`` for 7 steps as
-    phase 9 runs it (same weights, data and timings), four times in turns:
-    host loader, ``--device_prep``, ``--device_prep``, host loader.
+    phase 9 runs it (same weights, data and timings), twice: host loader,
+    then ``--device_prep``.
     Per run and per loader: step wall, device span, images/s, busy share, loader
     wait, the loader threads' host ms, ``cudaMalloc`` calls and CUDA
     runtime host ms per step, peak memory, positives and launches per step
-    (NMS 1, RoIAlign 2, backward 2).
+    (as phase 9 counts them, on the captured step).
 
 12. data_parallel — data parallelism and gradient accumulation at phase
     9's full width, from a batch of 2 of its data whose rows both sample
@@ -119,15 +122,19 @@ Phases (each prints one JSON line):
     conv alone kept), deterministic algorithms, the global norm each step
     clips printed and, in (b) and (c), held within ``DP_TOLERANCE``
     (float32 1e-4, bfloat16 16 x 2^-8) relative of (a)'s: (a)
-    ``Trainer`` in a one-process NCCL group equals the plain ``train_step``
-    bit for bit, with the gradient all-reduce's bytes and ms for heads and
-    all; (b) two processes on the one card over gloo (``python3
+    ``Trainer`` in a one-process NCCL group, on its captured step (the
+    all-reduces captured with it) for three steps, equals the plain
+    ``train_step`` bit for bit after them (losses of every step,
+    parameters), with the gradient all-reduce's bytes and ms (of the eager
+    first step) for heads and all; (b) two processes on the one card over
+    gloo, whose steps run eagerly (``python3
     chip_smoke.py data_parallel_worker RANK PORT DIR``), one row each with
     the global draws, equal to each other bit for bit and within
     ``DP_TOLERANCE`` of the update's largest element of (a), plus one
     float32 ulp of each parameter (losses a tenth of it, relative); (c)
     ``accumulate_steps=2`` over the two rows, unchanged after micro-step 1
-    and within (b)'s tolerance of (a) after micro-step 2; (d)
+    and within (b)'s tolerance of (a) after micro-step 2, then captured
+    (micro-steps 3 and 4) and replayed (5 and 6, timed); (d)
     ``Detector(mesh=(cuda:0, cuda:0))`` on 3 of phase 6's images equals
     ``Detector`` without a mesh, and ``evaluate --data_parallel`` on 8
     equals the run without it; (e) in (b)'s processes, ``cli.train train
@@ -173,10 +180,23 @@ Phases (each prints one JSON line):
 15. train_soak — ``cli.train_soak`` at batch 8, 1024², heads, 20 steps from
     the seeded init, with the host loader and with ``--device_prep``: each
     alone (its own median step ms by CUDA events, peak memory, launches),
-    then under the train phase's instrumentation: finite losses, NMS 1 /
-    RoIAlign 2 / backward 2 launches per step, the step wall and loader
-    wait, the positive ROIs per step, and the backward kernels' device ms
-    per step (``torch.profiler``, the last three steps).
+    then under the train phase's instrumentation: finite losses, launches
+    per step as phase 9 counts them (on the captured step), the step wall
+    and loader wait, the positive ROIs per step, and the backward kernels'
+    device ms per step (``torch.profiler``, the last three steps).
+16. train_graph — ``Trainer``'s captured step (``train/compiled_step.py``)
+    at phase 9's full width, data and starting weights, batch 2, against
+    the plain eager ``train_step`` from the same weights, batches and
+    draws: bit-equal after every step (losses, parameters, momentum,
+    accumulator) under deterministic algorithms, heads and all in float32
+    and bfloat16 (4 steps each) and ``accumulate_steps=2`` in bfloat16
+    heads (4 micro-steps, two keys), one capture per key; without them,
+    the largest differences beside two eager runs' (printed); then graphed
+    and eager in turns, heads and all in bfloat16: step wall and
+    CUDA-event ms, host launch calls per step, busy share, kernel ms, the
+    kernels' launches per step by name (NMS 1, RoIAlign 2, backward fold 2
+    and gather 2 per replay), peak memory, the bytes the stage keeps
+    reserved and the capture seconds per key.
 
 Then, on lines of their own: the kernels' JSON summary, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` last. Any failure raises
@@ -194,6 +214,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -242,7 +263,7 @@ def host_us(fn, repeats: int) -> float:
     return us
 
 
-def device_kernels(fn, repeats: int) -> dict:
+def device_kernels(fn, repeats: int, expect=()) -> dict:
     """{kernel name: (mean device ms, launches) per call} of ``fn`` over
     ``repeats`` calls, from ``torch.profiler``, after one warm-up call.
 
@@ -250,24 +271,27 @@ def device_kernels(fn, repeats: int) -> dict:
     kernel events for 10 one-launch calls), so launches per call are the
     recorded count rounded to an integer, and the device time per call is
     the mean time per recorded event times that integer. It may also record
-    no device event at all in a window (seen once in a long run), so an
-    empty window is profiled again, up to three times."""
+    no device event at all in a window (seen once in a long run), or only
+    some kernels' (seen once: a batch-8 backward window without the
+    backward's kernels), so a window that is empty, or that lacks a kernel
+    whose name holds a fragment of ``expect``, is profiled again, up to
+    three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    ms, launches = {}, {}
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(repeats):
                 fn()
             torch.cuda.synchronize()
+        ms, launches = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 ms[e.name] = ms.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
                 launches[e.name] = launches.get(e.name, 0) + 1
-        if ms:
+        if ms and all(any(f in name for name in ms) for f in expect):
             break
     if not ms:
         raise RuntimeError("torch.profiler recorded no device activity")
@@ -531,7 +555,8 @@ def check_roi_align_backward(dev, b, dtype=torch.float32, layouts=BACKWARD_LAYOU
                                  f"{err} beyond {tol} (largest gradient {scale})")
         ms = cuda_ms(lambda: pyramid_roi_align_backward(*args), 20)
         plain_ms = cuda_ms(lambda: pyramid_roi_align_backward_plain(*args), 3)
-        by_kernel = device_kernels(lambda: pyramid_roi_align_backward(*args), 10)
+        by_kernel = device_kernels(lambda: pyramid_roi_align_backward(*args), 10,
+                                   expect=BACKWARD_KERNELS)
         kernel_launches = backward_kernel_ms(by_kernel)
         per_kernel = {k: [v for name, v in kernel_launches.items() if k in name]
                       for k in BACKWARD_KERNELS}
@@ -1156,33 +1181,68 @@ def convergence(dev, tmp, steps=150):
           "jax_test_floors": {"ap50": 0.04, "ar100": 0.15}, "final_losses": losses})
 
 
+# the kernels' names in a torch.profiler trace by which a train step's
+# launches are counted on the device (a replay of the captured step calls no
+# wrapper): the NMS, the RoIAlign and the backward's two kernels
+STEP_KERNELS = ("nms_scan_kernel", "roi_align_kernel", "roi_align_backward_fold",
+                "roi_align_backward_gather")
+ONE_STEP = {"nms_scan_kernel": 1, "roi_align_kernel": 2, "roi_align_backward_fold": 2,
+            "roi_align_backward_gather": 2}
+# the kernel by whose launches each wrapper's calls are counted in a step
+STEP_KERNEL_OF = {"nms": "nms_scan_kernel", "roi_align": "roi_align_kernel",
+                  "roi_align_backward": "roi_align_backward_fold"}
+
+
+def wrapper_launches_per_step(steps: int, keys: int = 1, graphed: bool = True) -> list:
+    """The wrappers' launches (NMS, RoIAlign, backward) in each of ``steps``
+    train steps of one stage whose batches share one shape: eager, every
+    step [1, 2, 2]; on the captured step, each of the ``keys`` accumulation
+    phases' first call (eager) and second (the capture) [1, 2, 2], and a
+    replay none."""
+    if not graphed:
+        return [[1, 2, 2]] * steps
+    return [[1, 2, 2]] * min(steps, 2 * keys) + [[0, 0, 0]] * max(0, steps - 2 * keys)
+
+
+def step_kernel_launches(prof, steps: int) -> dict:
+    """{kernel: launches per step} of ``STEP_KERNELS`` on the device in a
+    ``torch.profiler`` window over ``steps`` steps, rounded (the profiler
+    may drop an event: :func:`device_kernels`)."""
+    from torch.autograd import DeviceType
+
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {k: round(sum(k in n for n in names) / steps) for k in STEP_KERNELS}
+
+
 @contextlib.contextmanager
 def timed_train(trainer_mod, cli, kernels, profile_last):
-    """Records, per train step of ``cli.train``'s loop: host wall ms (the
-    step ends in a synchronize), the CUDA events' device span, the losses,
-    the positive and the valid (not padding) sampled ROIs, each kernel's
-    launches, the caching allocator's
-    ``cudaMalloc`` calls, and the loader's wait; per sample, the host ms of
-    the loader's worker threads (``_make_one_sample``), and per batch of a
-    ``DevicePrepLoader``, the host ms of its prefetch thread (``_prepare``:
-    the pinned upload and the prep's launches). The last ``profile_last``
-    steps of each stage run under ``torch.profiler`` (kernel time over step
-    wall: the busy share; host ms in CUDA runtime calls) and are left out
-    of the timings."""
+    """Records, per train step (``Trainer.run_step``: the captured step on
+    the card): host wall ms (the step ends in a synchronize), the CUDA
+    events' device span, the losses, the positive and the valid (not
+    padding) sampled ROIs (two more entries of the step's losses, so that a
+    replay of the captured step gives them too), the wrappers' launches,
+    the caching allocator's ``cudaMalloc`` calls, and the loader's wait;
+    per sample, the host ms of the loader's worker threads
+    (``_make_one_sample``), and per batch of a ``DevicePrepLoader``, the
+    host ms of its prefetch thread (``_prepare``: the pinned upload and the
+    prep's launches). The last ``profile_last`` steps of each stage run
+    under ``torch.profiler`` (kernel time over step wall: the busy share;
+    the kernels' launches per step by name; host ms in CUDA runtime calls)
+    and are left out of the timings."""
     from torch.profiler import ProfilerActivity, profile
 
-    rec = {"steps": [], "loader_wait_ms": [], "positives": [], "valid_rois": [], "stages": [],
+    rec = {"steps": [], "loader_wait_ms": [], "stages": [],
            "loaders": [], "sample_ms": [], "prepare_ms": []}
-    step_fn, losses_fn = trainer_mod.train_step, trainer_mod.batched_losses
+    step_fn, losses_fn = trainer_mod.Trainer.run_step, trainer_mod.batched_losses
     loader_classes = (cli.TrainLoader, cli.DevicePrepLoader)
     state = {"n": 0, "total": 0, "prof": None}
 
     def batched_losses(out, batch):
-        rec["positives"].append(out.targets.positive.sum())
-        rec["valid_rois"].append(out.targets.valid.sum())
-        return losses_fn(out, batch)
+        return dict(losses_fn(out, batch),
+                    _positives=out.targets.positive.sum().to(torch.float32),
+                    _valid_rois=out.targets.valid.sum().to(torch.float32))
 
-    def train_step(model, optimizer, batch, generator=None, uniforms=None):
+    def run_step(self, batch, uniforms):
         i = state["n"]
         if i == state["total"] - profile_last:
             state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1192,17 +1252,18 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
         start.record()
-        losses = step_fn(model, optimizer, batch, generator, uniforms)
+        losses = step_fn(self, batch, uniforms)
         end.record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+        positives, valid = int(losses.pop("_positives")), int(losses.pop("_valid_rois"))
         rec["steps"].append(dict(wall_ms=wall, device_ms=start.elapsed_time(end),
                                  device_mallocs=torch.cuda.memory_stats().get(
                                      "num_device_alloc", 0) - mallocs,
                                  losses={k: float(v) for k, v in losses.items()},
-                                 positives=int(rec["positives"][-1]),
-                                 valid_rois=int(rec["valid_rois"][-1]),
+                                 positives=positives, valid_rois=valid,
                                  launches=[k.launches - b for k, b in zip(kernels, before)],
+                                 graphed=self.step_program is not None,
                                  profiled=state["prof"] is not None))
         state["n"] += 1
         return losses
@@ -1236,11 +1297,17 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
         state.update(n=0, total=total_steps, prof=None)
 
     def stop_profile():
-        """(device ms of the profiled steps' kernels, {kernel: ms} of the
-        port's three kernels among them, {CUDA runtime call: host ms})."""
+        """Over the profiled steps: ``kernel_ms`` (the device ms of their
+        kernels), ``ours`` ({kernel: ms} of the port's three kernels among
+        them), ``runtime_ms`` ({CUDA runtime call: host ms}), ``replayed``
+        ({kernel: launches per step} of ``STEP_KERNELS``) and
+        ``host_launch_calls`` (the host's launch calls, per step)."""
+        from sln_amodal_tpu_torch.profile_infer import HOST_LAUNCH_CALLS
+
         prof = state["prof"]
         if prof is None:
-            return 0.0, {}, {}
+            return dict(kernel_ms=0.0, ours={}, runtime_ms={}, replayed={},
+                        host_launch_calls=0.0)
         prof.stop()
         from torch.autograd import DeviceType
         spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
@@ -1255,14 +1322,18 @@ def timed_train(trainer_mod, cli, kernels, profile_last):
             if e.device_type != DeviceType.CUDA and e.name.startswith("cuda"):
                 runtime[e.name] = runtime.get(e.name, 0.0) + (e.time_range.end
                                                               - e.time_range.start) / 1e3
-        return sum(ms for _, ms in spans), ours, runtime
+        calls = sum(e.device_type != DeviceType.CUDA and e.name in HOST_LAUNCH_CALLS
+                    for e in prof.events())
+        return dict(kernel_ms=sum(ms for _, ms in spans), ours=ours, runtime_ms=runtime,
+                    replayed=step_kernel_launches(prof, profile_last),
+                    host_launch_calls=calls / profile_last)
 
-    trainer_mod.train_step, trainer_mod.batched_losses = train_step, batched_losses
+    trainer_mod.Trainer.run_step, trainer_mod.batched_losses = run_step, batched_losses
     cli.TrainLoader, cli.DevicePrepLoader = (timed_loader(c) for c in loader_classes)
     try:
         yield rec, stage, stop_profile
     finally:
-        trainer_mod.train_step, trainer_mod.batched_losses = step_fn, losses_fn
+        trainer_mod.Trainer.run_step, trainer_mod.batched_losses = step_fn, losses_fn
         cli.TrainLoader, cli.DevicePrepLoader = loader_classes
 
 
@@ -1331,10 +1402,12 @@ def train_kernels():
 def run_train_stages(dev, runs, common):
     """``cli.train train`` once per (label, stage, steps, extra arguments)
     of ``runs``, under :func:`timed_train` with the kernels' counts set to
-    0 first. Checks each run (finite losses, positive ROIs and launches NMS
-    1, RoIAlign 2, backward 2 every step) and returns ({label: its
-    numbers}, {kernel: launches over the runs}, the loaders the runs
-    iterated)."""
+    0 first. Checks each run (finite losses, positive ROIs, every step on
+    the captured step, the wrappers' launches of its first two steps NMS
+    1, RoIAlign 2, backward 2 and of the replays none, and on the device
+    per profiled replay NMS 1, RoIAlign 2, backward fold 2 and gather 2)
+    and returns ({label: its numbers}, {kernel: the wrappers' launches over
+    the runs}, the loaders the runs iterated)."""
     from sln_amodal_tpu_torch.cli import train as cli
     from sln_amodal_tpu_torch.train import trainer as trainer_mod
 
@@ -1352,10 +1425,13 @@ def run_train_stages(dev, runs, common):
             out = cli.main(["train", "--stage", name, "--epochs", "1", "--steps_per_epoch",
                             str(steps), *extra, *common])
             stage_s = time.perf_counter() - t
-            busy_ms, kernel_ms, runtime_ms = stop_profile()
+            prof = stop_profile()
+            busy_ms, kernel_ms, runtime_ms, replayed = (
+                prof["kernel_ms"], prof["ours"], prof["runtime_ms"], prof["replayed"])
             new = {k: rec[k][n:] for k, n in marks.items()}
             steps_rec = rec["steps"][first:]
-            timed = [s for s in steps_rec[1:] if not s["profiled"]]
+            # the first two steps are warm-up: the eager first call, the capture
+            timed = [s for s in steps_rec[2:] if not s["profiled"]]
             profiled = [s for s in steps_rec if s["profiled"]]
             losses = [s["losses"]["total"] for s in steps_rec]
             if len(steps_rec) != steps or not all(np.isfinite(v) for s in steps_rec
@@ -1364,9 +1440,11 @@ def run_train_stages(dev, runs, common):
             if min(s["positives"] for s in steps_rec) == 0:
                 raise AssertionError(f"stage {name}: a step sampled no positive ROI: "
                                      f"{[s['positives'] for s in steps_rec]}")
-            if any(s["launches"] != [1, 2, 2] for s in steps_rec):
-                raise AssertionError(f"stage {name}: launches per step "
-                                     f"{[s['launches'] for s in steps_rec]}")
+            if ([s["launches"] for s in steps_rec] != wrapper_launches_per_step(steps)
+                    or not all(s["graphed"] for s in steps_rec) or replayed != ONE_STEP):
+                raise AssertionError(f"stage {name}: wrapper launches per step "
+                                     f"{[s['launches'] for s in steps_rec]}, on the device per "
+                                     f"replay {replayed} (want {ONE_STEP})")
             wall = statistics.median(s["wall_ms"] for s in timed)
             stages[label] = dict(
                 steps=steps, checkpoint=os.path.basename(out.checkpoints[-1]),
@@ -1394,7 +1472,8 @@ def run_train_stages(dev, runs, common):
                 positives_per_step=[s["positives"] for s in steps_rec],
                 # the sampled ROIs that are not padding, of 100 per image
                 valid_rois_per_step_mean=statistics.mean(s["valid_rois"] for s in steps_rec),
-                launches_per_step=dict(zip(KERNEL_NAMES, steps_rec[-1]["launches"])),
+                launches_per_step=replayed,
+                wrapper_launches_per_step=[s["launches"] for s in steps_rec],
                 launches=dict(zip(KERNEL_NAMES, np.sum([s["launches"] for s in steps_rec],
                                                        0).tolist())))
     launches = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
@@ -1414,9 +1493,10 @@ def train_path(dev, tmp):
     weights of :func:`train_start_weights`: ``--stage heads`` for
     ``HEADS_STEPS`` steps, then ``--stage all`` for 7 (the backward through
     all of ResNet-101); then ``evaluate`` loads the saved checkpoint on 8 of
-    the images and must detect. In each stage the first step is warm-up,
-    the last three run under one ``torch.profiler`` window for the busy
-    share and the rest are timed."""
+    the images and must detect. In each stage the first two steps are
+    warm-up (the captured step's eager first call and its capture), the
+    last three run under one ``torch.profiler`` window for the busy share
+    and the rest are timed."""
     from sln_amodal_tpu_torch.cli import train as cli
     from sln_amodal_tpu_torch.train import checkpoint as ckpt
     from sln_amodal_tpu_torch.utils.synthetic import biased_pair, make_synthetic_dataset
@@ -1545,13 +1625,12 @@ def device_prep_check(dev, tr):
 
 def train_device_prep(dev, tmp, tr, prep):
     """Phase 11: phase 9's heads stage with ``--device_prep`` (the same
-    weights, data, steps and timings, the targets built on the card), in
-    turns with the host loader: host, device prep, device prep, host.
-    Emits each run and both loaders' numbers over their two runs (step
-    medians over the timed steps, means of the rest)."""
+    weights, data, steps and timings, the targets built on the card), after
+    a run with the host loader. Emits each run and both loaders' numbers
+    (step medians over the timed steps, means of the rest)."""
     common = ["--dataset", tr["root"], "--batch_size", "2", "--seed", "0", "--device", str(dev),
               "--logs", os.path.join(tmp, "train_device_prep_logs"), "--model", tr["model"]]
-    order = ("host", "device_prep", "device_prep", "host")
+    order = ("host", "device_prep")
     runs = [(f"{kind}_{i}", "heads", 7, ["--device_prep"] if kind == "device_prep" else [])
             for i, kind in enumerate(order)]
     stages, _, loaders = run_train_stages(dev, runs, common)
@@ -1561,7 +1640,7 @@ def train_device_prep(dev, tmp, tr, prep):
 
     def summary(kind):
         runs_of = [v for k, v in stages.items() if k.startswith(kind)]
-        walls = [w for r in runs_of for w in r["step_wall_ms"][1:4]]
+        walls = [w for r in runs_of for w in r["step_wall_ms"][2:4]]
         prefetch = [r["prefetch_ms_per_batch"] for r in runs_of
                     if r["prefetch_ms_per_batch"] is not None]
         return dict(
@@ -1599,13 +1678,16 @@ class OneBatch:
 def timed_all_reduce():
     """Records the bytes and the CUDA-event device ms of every
     ``multihost.all_reduce_mean_`` call (the gradients' bucket, the logged
-    losses)."""
+    losses) made outside a CUDA graph capture (a captured call runs in the
+    graph's replays, where no event times it)."""
     from sln_amodal_tpu_torch.parallel import multihost
 
     calls = []
     reduce = multihost.all_reduce_mean_
 
     def timed(tensors):
+        if torch.cuda.is_current_stream_capturing():
+            return reduce(tensors)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         nbytes = reduce(tensors)
@@ -1623,15 +1705,17 @@ def timed_all_reduce():
 
 @contextlib.contextmanager
 def clipped_norms():
-    """Records the global norm that every ``StagedSGD.step`` clips (None for
-    a micro-step that does not update)."""
+    """Records the global norm that every eager ``StagedSGD.step`` clips
+    (None for a micro-step that does not update; a captured step's norm is
+    the graph's and is not kept)."""
     from sln_amodal_tpu_torch.train.optim import StagedSGD
 
     norms, step = [], StagedSGD.step
 
     def recorded(self):
         norm = step(self)
-        norms.append(norm)
+        if not torch.cuda.is_current_stream_capturing():
+            norms.append(norm)
         return norm
 
     StagedSGD.step = recorded
@@ -1674,15 +1758,24 @@ def rpn_grad_to_fpn(cfg, sd, batch, uniforms, dev) -> float:
 def dp_trainer_step(cfg, sd, dev, stage, loader, seed, steps=1, accumulate_steps=1,
                     on_epoch_end=None):
     """``Trainer.train_stage`` from ``sd``: ``steps`` epochs of one step on
-    ``loader``; returns (trainer, last losses, the kernels' launches per
-    step, wall ms per step ending in a synchronize)."""
+    ``loader``; returns (trainer, each step's losses, the kernels' launches
+    per step, wall ms per step ending in a synchronize, whether the steps
+    ran on the captured step). Checks the wrappers' launches: eager NMS 1,
+    RoIAlign 2, backward 2 every step; on the captured step so in each
+    accumulation phase's first two steps and none in a replay."""
     from sln_amodal_tpu_torch.train.trainer import Trainer
 
     kernels = train_kernels()
     trainer = Trainer(cfg, sd, device=dev)
-    launches, walls = [], []
+    launches, walls, losses, graphed = [], [], [], []
     before = [[k.launches for k in kernels]]
     t = [time.perf_counter()]
+    run_step = trainer.run_step
+
+    def recorded(batch, uniforms):
+        graphed.append(trainer.step_program is not None)
+        losses.append({k: float(v) for k, v in run_step(batch, uniforms).items()})
+        return losses[-1]
 
     def end(epoch):
         torch.cuda.synchronize()
@@ -1693,12 +1786,17 @@ def dp_trainer_step(cfg, sd, dev, stage, loader, seed, steps=1, accumulate_steps
         before[0] = [k.launches for k in kernels]
         t[0] = time.perf_counter()
 
-    losses = trainer.train_stage(loader, stage, cfg.learning_rate, epochs=steps,
-                                 steps_per_epoch=1, seed=seed, on_epoch_end=end,
-                                 accumulate_steps=accumulate_steps)
-    if any(n != [1, 2, 2] for n in launches):
-        raise AssertionError(f"data_parallel {stage}: launches per step {launches}")
-    return trainer, losses, launches, walls
+    trainer.run_step = recorded
+    try:
+        trainer.train_stage(loader, stage, cfg.learning_rate, epochs=steps, steps_per_epoch=1,
+                            seed=seed, on_epoch_end=end, accumulate_steps=accumulate_steps)
+    finally:
+        del trainer.run_step          # the closure's reference cycle, which would keep the model
+    if len(set(graphed)) != 1 or launches != wrapper_launches_per_step(
+            steps, accumulate_steps, graphed[0]):
+        raise AssertionError(f"data_parallel {stage}: launches per step {launches}, "
+                             f"graphed {graphed}")
+    return trainer, losses, launches, walls, graphed[0]
 
 
 def data_parallel_worker(rank: int, port: str, path: str) -> int:
@@ -1723,12 +1821,14 @@ def data_parallel_worker(rank: int, port: str, path: str) -> int:
     try:
         row = {k: v[rank:rank + 1] for k, v in data["batch"].items()}
         with deterministic(), timed_all_reduce() as calls, clipped_norms() as norms:
-            trainer, losses, launches, walls = dp_trainer_step(
+            trainer, losses, launches, walls, graphed = dp_trainer_step(
                 data["config"], data["state_dict"], dev, "all", OneBatch(row), data["seed"])
-        torch.save({"losses": losses, "params": trainable(trainer.model),
+        if graphed:
+            raise AssertionError("data_parallel (b): a gloo group's step was captured")
+        torch.save({"losses": losses[0], "params": trainable(trainer.model),
                     "norm": float(norms[0])}, os.path.join(path, f"out{rank}.pt"))
         emit({"phase": "data_parallel_rank", "part": "b", "rank": rank, "world": 2,
-              "backend": "gloo", "launches_per_step": dict(zip(KERNEL_NAMES, launches[0])),
+              "backend": "gloo", "step": "eager", "launches_per_step": dict(zip(KERNEL_NAMES, launches[0])),
               "step_wall_ms": walls[0], "all_reduce": gradient_bucket(calls),
               "all_reduce_calls": len(calls), "clipped_norm": float(norms[0])})
     finally:
@@ -1886,23 +1986,35 @@ def data_parallel(dev, tmp, tr, ev):
     out = {"rpn_grad_to_fpn_norm": rpn_norm, "batch_index": batch_index,
            "row_head_losses": row_losses, "clip_norm": cfg.gradient_clip_norm}
     with deterministic():
-        # (a) the plain step, then the Trainer in a one-process NCCL group
+        # (a) the plain step three times, with the draws of the Trainer's
+        # epochs 0, 1 and 2 (one step each), then the Trainer in a
+        # one-process NCCL group: its captured step (the first step eager,
+        # the second captured and replayed, the third replayed)
         model = SLNAmodal(cfg, device=dev)
         model.load_state_dict(sd)
         opt = StagedSGD(model, "all", cfg.learning_rate, momentum=cfg.learning_momentum,
                         weight_decay=cfg.weight_decay, clip_norm=cfg.gradient_clip_norm)
+        epoch_draws = [draws] + [step_uniforms(epoch_generator(seed, e), 2,
+                                               cfg.post_nms_rois_training) for e in (1, 2)]
         before = [k.launches for k in kernels]
+        plain_losses = []
+
+        def plain_step(e):
+            plain_losses.append({k: float(v) for k, v in
+                                 train_step(model, opt, batch, uniforms=epoch_draws[e]).items()})
+
         with clipped_norms() as norms:
-            plain_losses = {k: float(v) for k, v in
-                            train_step(model, opt, batch, uniforms=draws).items()}
+            plain_step(0)
         plain, plain_norm = trainable(model), float(norms[0])
-        # a second step, warm, for its wall time
+        # the second step, warm, for its wall time
         torch.cuda.synchronize()
         t = time.perf_counter()
-        train_step(model, opt, batch, uniforms=draws)
+        plain_step(1)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t) * 1e3
-        if [k.launches - b for k, b in zip(kernels, before)] != [2, 4, 4]:
+        plain_step(2)
+        plain_3 = trainable(model)
+        if [k.launches - b for k, b in zip(kernels, before)] != [3, 6, 6]:
             raise AssertionError("data_parallel: the plain steps' launches")
         del model, opt
         torch.cuda.empty_cache()
@@ -1915,33 +2027,37 @@ def data_parallel(dev, tmp, tr, ev):
         multihost.init_group(f"localhost:{free_port()}", 1, 0, "nccl")
         try:
             reduce = {}
-            for stage in ("all", "heads"):
+            for stage, steps in (("all", 3), ("heads", 1)):
                 with timed_all_reduce() as calls, clipped_norms() as norms:
-                    trainer, losses, _, walls = dp_trainer_step(cfg, sd, dev, stage,
-                                                                OneBatch(batch), seed)
+                    trainer, losses, _, walls, graphed = dp_trainer_step(
+                        cfg, sd, dev, stage, OneBatch(batch), seed, steps=steps)
                 reduce[stage] = dict(gradient_bucket(calls), tensors=len(trainer.optimizer.params),
-                                     step_wall_ms=walls[0], clipped_norm=float(norms[0]))
+                                     step_wall_ms=walls, clipped_norm=float(norms[0]))
                 if stage == "all":
                     nccl = trainable(trainer.model)
-                    if losses != plain_losses or not all(torch.equal(nccl[k], plain[k])
-                                                         for k in plain):
-                        raise AssertionError("data_parallel (a): the NCCL world-1 step "
-                                             "differs from the plain step")
+                    if not graphed or losses != plain_losses or not all(
+                            torch.equal(nccl[k], plain_3[k]) for k in plain_3):
+                        raise AssertionError(f"data_parallel (a): the NCCL world-1 Trainer "
+                                             f"(captured {graphed}) differs from the plain "
+                                             f"step: losses {losses} vs {plain_losses}")
                 del trainer
                 torch.cuda.empty_cache()
         finally:
             multihost.shutdown()
-        out["a"] = dict(world=1, backend="nccl", bit_equal=True, plain_step_wall_ms=plain_ms,
-                        losses=plain_losses, clipped_norm=plain_norm,
+        del plain_3
+        out["a"] = dict(world=1, backend="nccl", captured_step=True, steps=3, bit_equal=True,
+                        plain_step_wall_ms=plain_ms, losses=plain_losses[0],
+                        losses_by_step=plain_losses, clipped_norm=plain_norm,
                         clip_binds=plain_norm > cfg.gradient_clip_norm, update_max_abs=update,
                         all_reduce=reduce)
         emit({"phase": "data_parallel", "part": "a", **out["a"]})
 
         # (c) micro-batches of one row with the rows' draws of (a), two per
-        # update: checked after micro-steps 1 and 2, timed warm on 3 and 4
+        # update: checked after micro-steps 1 and 2 (each phase's eager first
+        # call), captured on 3 and 4, replayed and timed on 5 and 6
         halves = [{k: v[i:i + 1] for k, v in batch.items()} for i in (0, 1)]
         rows = OneBatch(*[(draws[0][i:i + 1], draws[1][i:i + 1]) for i in (0, 1)])
-        seen, step_losses = {}, []
+        seen = {}
 
         def check(epoch, trainer):
             if epoch == 1:
@@ -1951,21 +2067,15 @@ def data_parallel(dev, tmp, tr, ev):
             if epoch == 2:
                 seen["params"] = trainable(trainer.model)
 
-        def recorded_step(*args, **kwargs):
-            losses = train_step(*args, **kwargs)
-            step_losses.append({k: float(v) for k, v in losses.items()})
-            return losses
-
         row_draws = iter(rows)
         trainer_mod.step_uniforms = lambda generator, b, rois: next(row_draws)
-        trainer_mod.train_step = recorded_step
         try:
             with clipped_norms() as norms:
-                trainer, _, _, walls = dp_trainer_step(
-                    cfg, sd, dev, "all", OneBatch(*halves), seed, steps=4, accumulate_steps=2,
+                trainer, step_losses, _, walls, _ = dp_trainer_step(
+                    cfg, sd, dev, "all", OneBatch(*halves), seed, steps=6, accumulate_steps=2,
                     on_epoch_end=check)
         finally:
-            trainer_mod.step_uniforms, trainer_mod.train_step = step_uniforms, train_step
+            trainer_mod.step_uniforms = step_uniforms
         del trainer
         torch.cuda.empty_cache()
     launches = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
@@ -2010,7 +2120,7 @@ def data_parallel(dev, tmp, tr, ev):
     out["c"] = dict(accumulate_steps=2, unchanged_after_micro_step_1=True,
                     accumulator_tensors=seen["accumulated"], param_max_abs_err=acc_err,
                     param_err_of_update=acc_err / update, micro_step_wall_ms=walls,
-                    accumulated_step_wall_ms=sum(walls[2:]), plain_step_wall_ms=plain_ms,
+                    accumulated_step_wall_ms=sum(walls[4:]), plain_step_wall_ms=plain_ms,
                     clipped_norms=clipped,
                     micro_step_losses=step_losses)
     emit({"phase": "data_parallel", "part": "c", **out["c"]})
@@ -2046,8 +2156,8 @@ def data_parallel(dev, tmp, tr, ev):
     if ranks[0]["losses"] != ranks[1]["losses"] or not all(
             torch.equal(ranks[0]["params"][k], ranks[1]["params"][k]) for k in plain):
         raise AssertionError("data_parallel (b): the two processes' steps differ")
-    loss_err = max(abs(ranks[0]["losses"][k] - plain_losses[k]) / abs(plain_losses[k])
-                   for k in plain_losses if plain_losses[k] != 0)
+    loss_err = max(abs(ranks[0]["losses"][k] - plain_losses[0][k]) / abs(plain_losses[0][k])
+                   for k in plain_losses[0] if plain_losses[0][k] != 0)
     if loss_err > rel / 10:
         raise AssertionError(f"data_parallel (b): losses {loss_err} relative from (a)'s")
     gloo_err = held(ranks[0]["params"], "(b)")
@@ -2514,11 +2624,13 @@ def soak_path(dev, tmp):
     steps from the seeded init, with the host ``TrainLoader`` and with
     ``--device_prep``. First each loader's soak alone, as a user runs it:
     its own median step ms (CUDA events, no synchronize), its wall, peak
-    device memory, and the kernels' launches over both runs, counted from
-    0. Then each again under :func:`timed_train` (each step ends in a
-    synchronize; the last three run under ``torch.profiler`` and are left
-    out of the medians): finite losses (the first and last printed),
-    launches per step (NMS 1, RoIAlign 2, backward 2), the step's wall and
+    device memory, and the wrappers' launches over both runs, counted from
+    0 (each run's captured step: its eager first call and its capture).
+    Then each again under :func:`timed_train` (each step ends in a
+    synchronize; the first two steps, the eager first call and the capture,
+    and the last three, under ``torch.profiler``, are left out of the
+    medians): finite losses (the first and last printed), launches per step
+    as phase 9 counts them, the step's wall and
     device ms, the loader wait, the positive and valid sampled ROIs per step
     (from the seeded init few or none are positive) and the backward
     kernels' device ms per profiled step."""
@@ -2542,9 +2654,9 @@ def soak_path(dev, tmp):
                            soak_step_ms=soak.step_ms, soak_last_losses=soak.last_losses,
                            peak_mem_bytes=int(torch.cuda.max_memory_allocated(dev)))
     launches = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
-    if launches != {"nms": 2 * SOAK_STEPS, "roi_align": 4 * SOAK_STEPS,
-                    "roi_align_backward": 4 * SOAK_STEPS}:
-        raise AssertionError(f"soak launches over {2 * SOAK_STEPS} steps: {launches}")
+    # per run the captured step's eager first call and its capture
+    if launches != {"nms": 4, "roi_align": 8, "roi_align_backward": 8}:
+        raise AssertionError(f"soak launches over two runs of {SOAK_STEPS} steps: {launches}")
 
     with timed_train(trainer_mod, train_soak, kernels, profile_last=3) as (rec, stage,
                                                                           stop_profile):
@@ -2555,16 +2667,19 @@ def soak_path(dev, tmp):
             t = time.perf_counter()
             train_soak.main(argv + extra)
             run_s = time.perf_counter() - t
-            _, kernel_ms, _ = stop_profile()
+            prof = stop_profile()
+            kernel_ms, replayed = prof["ours"], prof["replayed"]
             steps_rec = rec["steps"][first:]
             profiled = [s for s in steps_rec if s["profiled"]]
-            timed = [s for s in steps_rec[1:] if not s["profiled"]]
+            timed = [s for s in steps_rec[2:] if not s["profiled"]]
             if (len(steps_rec) != SOAK_STEPS
                     or not all(np.isfinite(v) for s in steps_rec for v in s["losses"].values())):
                 raise AssertionError(f"soak {label}: steps {steps_rec}")
-            if any(s["launches"] != [1, 2, 2] for s in steps_rec):
-                raise AssertionError(f"soak {label}: launches per step "
-                                     f"{[s['launches'] for s in steps_rec]}")
+            if ([s["launches"] for s in steps_rec] != wrapper_launches_per_step(SOAK_STEPS)
+                    or replayed != ONE_STEP):
+                raise AssertionError(f"soak {label}: wrapper launches per step "
+                                     f"{[s['launches'] for s in steps_rec]}, on the device per "
+                                     f"replay {replayed} (want {ONE_STEP})")
             wait = rec["loader_wait_ms"][waits:]
             positives = [s["positives"] for s in steps_rec]
             runs[label].update(
@@ -2582,9 +2697,274 @@ def soak_path(dev, tmp):
                 positives_per_step=positives,
                 steps_with_positives=sum(p > 0 for p in positives),
                 valid_rois_per_step=[s["valid_rois"] for s in steps_rec],
-                launches_per_step=dict(zip(KERNEL_NAMES, steps_rec[-1]["launches"])))
+                launches_per_step=replayed)
             emit({"phase": "train_soak", "loader": label, **runs[label]})
     return dict(runs=runs, launches=launches)
+
+
+# phase 16's cases: (compute dtype, stage, accumulate_steps, steps)
+GRAPH_CASES = (("float32", "heads", 1, 4), ("float32", "all", 1, 4),
+               ("bfloat16", "heads", 1, 4), ("bfloat16", "all", 1, 4),
+               ("bfloat16", "heads", 2, 4))
+# per timed run: the eager first call, the capture, 3 timed and 3 profiled
+GRAPH_TIMED_STEPS = 8
+
+
+def momentum_of(opt) -> list:
+    return [opt.sgd.state[p].get("momentum_buffer") for p in opt.params]
+
+
+def step_differences(trainer, model, opt, got_losses, want_losses) -> dict:
+    """How far ``trainer``'s state after a step is from the plain run's
+    (``model``, ``opt``): whether the losses, the parameters, the momentum
+    and the accumulator are each bit-equal, and their largest absolute
+    differences."""
+    def pairs(kind):
+        if kind == "losses":
+            return [(got_losses[k], want_losses[k]) for k in want_losses]
+        if kind == "params":
+            got = dict(trainer.model.named_parameters())
+            return [(got[k].detach(), v.detach()) for k, v in model.named_parameters()]
+        if kind == "momentum":
+            return [(a, b) for a, b in zip(momentum_of(trainer.optimizer), momentum_of(opt))
+                    if a is not None or b is not None]
+        return list(zip(trainer.optimizer.accumulated or [], opt.accumulated or []))
+
+    out = {}
+    for kind in ("losses", "params", "momentum", "accumulated"):
+        ps = pairs(kind)
+        equal = all(a is not None and b is not None and a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in ps)
+        diff = max([float((a.double() - b.double()).abs().max()) for a, b in ps
+                    if a is not None and b is not None] + [0.0])
+        out[kind] = {"bit_equal": equal, "max_abs_diff": diff}
+    out["bit_equal"] = all(v["bit_equal"] for v in out.values())
+    return out
+
+
+def graph_lockstep(trainer, plains, sd, batches, draws, stage, accumulate_steps):
+    """``trainer.train_stage`` from ``sd`` (its captured step), one step
+    per epoch over ``batches`` in turn with ``draws[i]`` as step i's
+    uniforms, and after every step the plain ``train_step`` on each model
+    of ``plains`` (reloaded from ``sd``) on the same batch and draws.
+    Returns per step: {"vs_eager": :func:`step_differences` against the
+    first plain model, "eager_vs_eager": the second plain model's against
+    the first (when there are two)}, and the stage's captured step's keys
+    and capture seconds."""
+    from sln_amodal_tpu_torch.train import trainer as trainer_mod
+    from sln_amodal_tpu_torch.train.optim import StagedSGD
+
+    cfg = trainer.config
+    trainer.model.load_state_dict(sd)
+    runs = []
+    for model in plains:
+        model.load_state_dict(sd)
+        runs.append((model, StagedSGD(model, stage, cfg.learning_rate,
+                                      momentum=cfg.learning_momentum,
+                                      weight_decay=cfg.weight_decay,
+                                      clip_norm=cfg.gradient_clip_norm,
+                                      accumulate_steps=accumulate_steps)))
+    seen, steps = {}, []
+    run_step = trainer.run_step
+
+    def recorded(batch, uniforms):
+        seen["program"] = trainer.step_program
+        seen["losses"] = run_step(batch, uniforms)
+        return seen["losses"]
+
+    def end(epoch):
+        i = len(steps)
+        batch = trainer_mod.to_device(batches[i % len(batches)], trainer.device)
+        wants = [trainer_mod.train_step(model, opt, batch, uniforms=draws[i])
+                 for model, opt in runs]
+        step = {"vs_eager": step_differences(trainer, *runs[0], seen["losses"], wants[0])}
+        if len(runs) > 1:
+            other = SimpleNamespace(model=runs[1][0], optimizer=runs[1][1])
+            step["eager_vs_eager"] = step_differences(other, *runs[0], wants[1], wants[0])
+        steps.append(step)
+        seen["capture_s"] = dict(trainer.step_program.capture_seconds)
+
+    trainer.run_step = recorded
+    it = iter(draws)
+    uniforms = trainer_mod.step_uniforms
+    trainer_mod.step_uniforms = lambda generator, b, rois: next(it)
+    try:
+        trainer.train_stage(OneBatch(*batches), stage, cfg.learning_rate, epochs=len(draws),
+                            steps_per_epoch=1, on_epoch_end=end,
+                            accumulate_steps=accumulate_steps)
+    finally:
+        trainer_mod.step_uniforms = uniforms
+        del trainer.run_step
+    program = seen["program"]
+    return steps, dict(captures=program.captures,
+                       keys=[f"phase {phase}, images {dict((k, s) for k, s, _ in shapes[:6])['images']}"
+                             for phase, shapes in program.keys()],
+                       capture_s_by_key=list(seen["capture_s"].values()))
+
+
+@contextlib.contextmanager
+def eager_train_step():
+    """``Trainer`` runs its step eagerly on the card: the eager side of the
+    graphed-against-eager timings (the step's capture class patched to one
+    that does not capture)."""
+    from sln_amodal_tpu_torch.train import compiled_step
+
+    graphs = compiled_step.CudaGraphs
+
+    class Eager(graphs):
+        @staticmethod
+        def captures_on(device):
+            return False
+
+    compiled_step.CudaGraphs = Eager
+    try:
+        yield
+    finally:
+        compiled_step.CudaGraphs = graphs
+
+
+def train_graph(dev, tr):
+    """Phase 16: ``Trainer``'s captured step at full width (the train
+    phase's config, data and starting weights, batch 2) against the plain
+    eager ``train_step`` from the same weights, batches and draws:
+
+    (a) under deterministic algorithms, bit-equal after every step (losses,
+        parameters, momentum, accumulator) in ``GRAPH_CASES``: heads and all
+        in float32 and bfloat16, four steps each (the first eager, the
+        second captured and replayed, then replays), and
+        ``accumulate_steps=2`` in bfloat16 heads over four micro-steps (two
+        keys); one capture per key, its seconds printed;
+    (b) without them (bfloat16, heads, four steps): the largest
+        differences of the graphed step from an eager run beside those of
+        a second eager run from the first, printed, not held;
+    (c) graphed and eager side by side, in turns (graphed, eager, eager,
+        graphed) for heads and all in bfloat16: ``GRAPH_TIMED_STEPS`` steps
+        each, the step's wall and CUDA-event ms (median of the timed
+        steps), per profiled step the host's launch calls, the busy share,
+        the device kernel ms and the kernels' launches by name (NMS 1,
+        RoIAlign 2, backward fold 2 and gather 2 per replay, as per eager
+        step), the wrappers' launches per step (the graphed runs: only the
+        eager first call and the capture), the peak allocated memory and
+        the bytes the stage keeps reserved once its step ran twice (the
+        graph's pool and static buffers, the momentum)."""
+    from sln_amodal_tpu_torch.cli import train as cli
+    from sln_amodal_tpu_torch.data.pipeline import TrainLoader
+    from sln_amodal_tpu_torch.models.sln import SLNAmodal
+    from sln_amodal_tpu_torch.train import trainer as trainer_mod
+    from sln_amodal_tpu_torch.train.trainer import Trainer, epoch_generator, step_uniforms
+
+    base = tr["config"]
+    dataset = cli.load_train_dataset(cli.build_parser().parse_args(
+        ["train", "--dataset", tr["root"]]), "train")
+    loader = iter(TrainLoader(dataset, base, seed=0, workers=1))
+    batches = [next(loader) for _ in range(2)]
+    sd = train_start_weights(base, dev)
+    draws = [step_uniforms(epoch_generator(0, e), 2, base.post_nms_rois_training)
+             for e in range(4)]
+    kernels = train_kernels()
+    for k in kernels:
+        k.launches = 0
+    out = {"bit_equal": {}, "nondeterministic": None, "side_by_side": {}}
+    models = {}
+    with deterministic():
+        for dtype, stage, acc, steps in GRAPH_CASES:
+            if dtype not in models:
+                models.clear()
+                torch.cuda.empty_cache()
+                cfg = base.replace(compute_dtype=dtype)
+                models[dtype] = (Trainer(cfg, sd, device=dev), SLNAmodal(cfg, device=dev))
+            trainer, plain = models[dtype]
+            per_step, graph = graph_lockstep(trainer, [plain], sd, batches, draws[:steps],
+                                             stage, acc)
+            label = f"{dtype}_{stage}" + (f"_accumulate_{acc}" if acc > 1 else "")
+            if not all(s["vs_eager"]["bit_equal"] for s in per_step) or graph["captures"] != acc:
+                raise AssertionError(f"train_graph {label}: the captured step differs from the "
+                                     f"eager step: {per_step}, {graph}")
+            out["bit_equal"][label] = dict(steps=steps, **graph)
+            emit({"phase": "train_graph", "part": "a", "case": label, "bit_equal": True,
+                  **out["bit_equal"][label]})
+    # (b) without deterministic algorithms: a second eager model beside
+    trainer, plain = models["bfloat16"]
+    second = SLNAmodal(trainer.config, device=dev)
+    per_step, _ = graph_lockstep(trainer, [plain, second], sd, batches, draws, "heads", 1)
+    del second, plain
+    out["nondeterministic"] = [
+        {kind: {part: step[kind][part]["max_abs_diff"] for part in ("losses", "params",
+                                                                    "momentum")}
+         for kind in ("vs_eager", "eager_vs_eager")} for step in per_step]
+    emit({"phase": "train_graph", "part": "b", "stage": "heads", "dtype": "bfloat16",
+          "max_abs_diff_by_step": out["nondeterministic"]})
+
+    # (c) graphed and eager in turns, bfloat16 (the CLIs' default)
+    models.clear()
+    torch.cuda.empty_cache()
+    trainer = Trainer(base, sd, device=dev)
+    with timed_train(trainer_mod, cli, kernels, profile_last=3) as (rec, stage_fn,
+                                                                    stop_profile):
+        for stage in ("heads", "all"):
+            runs = {"graphed": [], "eager": []}
+            for kind in ("graphed", "eager", "eager", "graphed"):
+                trainer.model.load_state_dict(sd)
+                stage_fn(GRAPH_TIMED_STEPS)
+                first = len(rec["steps"])
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                kept = {}
+
+                def end(epoch):
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    kept["bytes"] = torch.cuda.memory_reserved(dev) - reserved
+                    kept["capture_s"] = (None if trainer.step_program is None else
+                                         list(trainer.step_program.capture_seconds.values()))
+
+                with eager_train_step() if kind == "eager" else contextlib.nullcontext():
+                    trainer.train_stage(OneBatch(*batches), stage, base.learning_rate, epochs=1,
+                                        steps_per_epoch=GRAPH_TIMED_STEPS, on_epoch_end=end)
+                prof = stop_profile()
+                steps_rec = rec["steps"][first:]
+                graphed = kind == "graphed"
+                timed = [s for s in steps_rec[2:] if not s["profiled"]]
+                profiled = [s for s in steps_rec if s["profiled"]]
+                if (any(s["graphed"] != graphed for s in steps_rec)
+                        or [s["launches"] for s in steps_rec]
+                        != wrapper_launches_per_step(GRAPH_TIMED_STEPS, 1, graphed)
+                        or prof["replayed"] != ONE_STEP):
+                    raise AssertionError(f"train_graph {stage} {kind}: wrapper launches "
+                                         f"{[s['launches'] for s in steps_rec]}, on the device "
+                                         f"per step {prof['replayed']} (want {ONE_STEP})")
+                runs[kind].append(dict(
+                    step_wall_ms=statistics.median(s["wall_ms"] for s in timed),
+                    step_device_ms=statistics.median(s["device_ms"] for s in timed),
+                    first_step_wall_ms=steps_rec[0]["wall_ms"],
+                    second_step_wall_ms=steps_rec[1]["wall_ms"],
+                    host_launch_calls_per_step=prof["host_launch_calls"],
+                    kernel_ms_per_step=prof["kernel_ms"] / len(profiled),
+                    busy_share=prof["kernel_ms"] / sum(s["wall_ms"] for s in profiled),
+                    device_launches_per_step=prof["replayed"],
+                    wrapper_launches_per_step=[s["launches"] for s in steps_rec],
+                    peak_mem_bytes=int(torch.cuda.max_memory_allocated(dev)),
+                    stage_reserved_bytes=int(kept["bytes"]),
+                    capture_s_by_key=kept["capture_s"],
+                    losses_finite=all(np.isfinite(v) for s in steps_rec
+                                      for v in s["losses"].values())))
+                if not runs[kind][-1]["losses_finite"]:
+                    raise AssertionError(f"train_graph {stage} {kind}: a loss is not finite")
+            side = {kind: {key: [r[key] for r in rs] for key in rs[0]}
+                    for kind, rs in runs.items()}
+            out["side_by_side"][stage] = side
+            emit({"phase": "train_graph", "part": "c", "stage": stage, "dtype": "bfloat16",
+                  "batch": 2, "order": ["graphed", "eager", "eager", "graphed"], **side})
+    del trainer
+    torch.cuda.empty_cache()
+    out["launches"] = {n: k.launches for n, k in zip(KERNEL_NAMES, kernels)}
+    if min(out["launches"].values()) == 0:
+        raise AssertionError(f"a kernel of the graphed train path never launched: "
+                             f"{out['launches']}")
+    emit({"phase": "train_graph", "launches": out["launches"]})
+    return out
 
 
 def main() -> int:
@@ -2647,6 +3027,7 @@ def main() -> int:
                     {"nms": nms, "roi_align": roi, "roi_align_backward": backward})
         par = timed("parity", parity_path, dev, tmp)
         soak = timed("train_soak", soak_path, dev, tmp)
+        graph = timed("train_graph", train_graph, dev, tr)
     emit({"phase": "seconds", **phase_s})
 
     # one line per kernel: times at the evaluate path's shapes (batch 8) for
@@ -2681,11 +3062,14 @@ def main() -> int:
                                  "data_parallel_serving": dp["serving_launches"][key],
                                  "serving": srv["launches"][key],
                                  "parity": par["launches"][key],
-                                 "train_soak": soak["launches"][key]},
+                                 "train_soak": soak["launches"][key],
+                                 "train_graph": graph["launches"][key]},
             # per replay of the captured graph, by kernel name on the device
             "replayed_launches": {"detect": path["launches_per_replay"][key],
                                   "evaluate_batch": ev["launches_per_batch"][key],
-                                  "serving": srv["b"]["launches_per_detect"][key]},
+                                  "serving": srv["b"]["launches_per_detect"][key],
+                                  "train_step": tr["stages"]["heads"]["launches_per_step"][
+                                      STEP_KERNEL_OF[key]]},
             "dtype": "float32 boxes" if k32 is None else "bfloat16",
             # the backward's times are the "sampled" layout's, the others' beside
             **({"layout": "sampled",

@@ -29,6 +29,7 @@ current stream at each call, so they land in the graph.
 from __future__ import annotations
 
 import collections
+import gc
 from typing import Callable, Hashable, NamedTuple, Tuple
 
 import torch
@@ -36,37 +37,70 @@ import torch
 MAX_ENTRIES = 16   # the JAX package's lru_cache(maxsize=16)
 
 
+def capture_failed(what: str, err: Exception) -> RuntimeError:
+    """The error that a failed capture of ``what`` raises. A failure inside
+    the capture surfaces again at its end: it names both."""
+    cause = err.__context__
+    return RuntimeError(f"capturing {what} failed: {type(err).__name__}: {err}"
+                        + (f" (after {type(cause).__name__}: {cause})" if cause else ""))
+
+
 class CudaGraphs:
-    """Captures callables into ``torch.cuda.CUDAGraph``s that share one
-    memory pool, made at the first capture: the graphs of one owner (a
-    ``Detector``'s replicas and shapes). Sharing is safe because every
-    replay's outputs are copied out before the next replay is enqueued on
-    the stream."""
+    """Runs and captures callables for the graphs of one owner (a
+    ``Detector``'s replicas and shapes, a training stage's step): one side
+    stream per device, and one memory pool that the owner's graphs share,
+    made at the first capture. Sharing is safe where every replay's outputs
+    are copied out before the next replay is enqueued on the stream.
+
+    Captures run in ``thread_local`` mode: only the capturing thread's
+    unsafe CUDA calls fail them, as other threads work on the card
+    meanwhile (``DevicePrepLoader``'s thread builds the next batch on its
+    own stream, a process group's watchdog polls its events)."""
 
     def __init__(self):
         self._pool = None
+        self._streams = {}
 
     @staticmethod
     def captures_on(device: torch.device) -> bool:
-        return device.type == "cuda"
+        return torch.device(device).type == "cuda"
 
-    def capture(self, fn: Callable, inputs: Tuple[torch.Tensor, ...]):
-        """Warm ``fn`` up on ``inputs`` on a side stream, then capture it;
-        returns (replay, the graph's output tensors)."""
-        device = inputs[0].device
+    def _side(self, device: torch.device):
+        side = self._streams.get(device)
+        if side is None:
+            side = self._streams[device] = torch.cuda.Stream(device)
+        return side
+
+    def run_side(self, fn: Callable, device: torch.device):
+        """``fn()`` on the side stream of ``device``, after the current
+        stream's work so far and before its later work."""
         with torch.cuda.device(device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
+            current, side = torch.cuda.current_stream(), self._side(device)
+            side.wait_stream(current)
             with torch.cuda.stream(side):
-                fn(*inputs)
+                out = fn()
+            current.wait_stream(side)
+        return out
+
+    def capture_only(self, fn: Callable, device: torch.device, inputs: tuple = ()):
+        """Capture ``fn(*inputs)`` on the side stream of ``device`` into a
+        new ``torch.cuda.CUDAGraph`` (a capture runs nothing); returns
+        (replay, ``fn``'s outputs: the graph's tensors). First, as
+        ``torch.cuda.graph`` does, the garbage is collected and the caching
+        allocator's free blocks are returned to the card: the graph's pool
+        cannot draw on blocks that eager work left cached (a batch-8 train
+        step's capture ran out of memory beside 45 GB of them)."""
+        with torch.cuda.device(device):
             torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
             # capture_begin/end by hand, not ``torch.cuda.graph``: its exit
             # leaves the capture stream current when the capture fails
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=self._pool)
+            with torch.cuda.stream(self._side(device)):
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
                 try:
                     outputs = fn(*inputs)
                 finally:
@@ -77,6 +111,13 @@ class CudaGraphs:
                 graph.replay()
 
         return replay, outputs
+
+    def capture(self, fn: Callable, inputs: Tuple[torch.Tensor, ...]):
+        """Warm ``fn`` up on ``inputs`` on the side stream, then capture it;
+        returns (replay, the graph's output tensors)."""
+        device = inputs[0].device
+        self.run_side(lambda: fn(*inputs), device)
+        return self.capture_only(fn, device, inputs)
 
 
 class _Entry(NamedTuple):
@@ -128,12 +169,7 @@ class CapturedProgram:
         try:
             replay, outputs = self.graphs.capture(self.fn, static)
         except Exception as err:
-            # a failure inside the capture surfaces again at its end: name both
-            cause = err.__context__
-            raise RuntimeError(
-                f"capturing the program for shape key {key} failed: {type(err).__name__}: "
-                f"{err}" + (f" (after {type(cause).__name__}: {cause})" if cause else "")
-            ) from err
+            raise capture_failed(f"the program for shape key {key}", err) from err
         entry = self._entries[key] = _Entry(static, replay, outputs)
         self.captures += 1
         while len(self._entries) > MAX_ENTRIES:

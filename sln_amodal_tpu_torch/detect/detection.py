@@ -18,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from ..ops.boxes import apply_box_deltas, clip_boxes, std_dev_tensor
+from ..ops.boxes import apply_box_deltas, clip_boxes, device_constant
 from ..ops.nms_cuda import nms_sorted_batched
 from .proposal import top_k_indices
 
@@ -49,7 +49,7 @@ def refine_detections(
         deltas, 2, class_ids[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
 
     dt = torch.promote_types(rois.dtype, torch.float32)
-    std = std_dev_tensor(bbox_std_dev, dt, dev)
+    std = device_constant(bbox_std_dev, dt, dev)
     refined = apply_box_deltas(rois.to(dt), deltas_specific.to(dt) * std)
     refined = refined * float(image_size)
     win = windows.to(torch.float32).to(dt)

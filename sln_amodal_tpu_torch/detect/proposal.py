@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from ..ops.boxes import apply_box_deltas, clip_boxes, std_dev_tensor
+from ..ops.boxes import apply_box_deltas, clip_boxes, device_constant
 from ..ops.nms_cuda import nms_sorted_batched
 
 
@@ -42,7 +42,7 @@ def proposal_layer_batched(
     CUDA tensors and on the plain version for CPU tensors."""
     scores = rpn_probs[..., 1]
     dt = torch.promote_types(rpn_deltas.dtype, torch.float32)
-    std = std_dev_tensor(rpn_bbox_std_dev, dt, rpn_deltas.device)
+    std = device_constant(rpn_bbox_std_dev, dt, rpn_deltas.device)
     deltas = rpn_deltas.to(dt) * std
 
     k = min(pre_nms_limit, anchors.shape[0])

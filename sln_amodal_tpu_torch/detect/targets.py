@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.boxes import box_iou, box_refinement
+from ..ops.boxes import box_iou, box_refinement, device_constant
 from ..ops.roi_align import crop_and_resize
 
 
@@ -98,8 +98,9 @@ def detection_target_layer(
     neg_order = torch.sort(torch.where(negative, neg_uniform.to(dev), inf), dim=1,
                            stable=True).indices
     # negative count = int(pos / ratio) - pos, in float32 (a tensor divisor:
-    # the card divides by a scalar as a product with its reciprocal)
-    ratio = torch.tensor(roi_positive_ratio, dtype=torch.float32, device=dev)
+    # the card divides by a scalar as a product with its reciprocal; kept on
+    # the device, so a captured step uploads nothing)
+    ratio = device_constant(roi_positive_ratio, torch.float32, dev)
     want_neg = (n_pos.to(torch.float32) / ratio).to(torch.int32) - n_pos
     n_neg = torch.minimum(negative.sum(dim=1), torch.clamp(want_neg, min=0))
     n_neg = torch.where(n_pos > 0, n_neg, torch.zeros_like(n_neg))
@@ -122,7 +123,7 @@ def detection_target_layer(
     class_ids = torch.where(is_pos_slot, _take(gt_class_ids, assign),
                             torch.zeros((), dtype=gt_class_ids.dtype, device=dev))
     class_ids = class_ids.to(torch.int32)
-    std = torch.tensor(bbox_std_dev, dtype=torch.float32, device=dev)
+    std = device_constant(bbox_std_dev, torch.float32, dev)
     deltas = box_refinement(rois, roi_gt_boxes) / std
     deltas = torch.where(is_pos_slot[..., None], deltas, torch.zeros_like(deltas))
 

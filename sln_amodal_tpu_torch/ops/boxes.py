@@ -11,22 +11,25 @@ import torch
 
 LOG_DELTA_CLIP = 10.0  # guards exp overflow -> inf-inf NaN boxes
 
-_STD_DEVS = {}
+_CONSTANTS = {}
 
 
-def std_dev_tensor(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The box-delta standard deviations ``values`` as a tensor, kept per
-    (values, dtype, device): uploaded once, so that a CUDA graph capture of
-    the detect path, after its warm-up, makes no host-to-device copy. A
-    ``torch.export`` trace's stand-in tensor (a fake tensor) is not kept."""
-    key = (tuple(float(v) for v in values), dtype, torch.device(device))
-    std = _STD_DEVS.get(key)
-    if std is None:
+def device_constant(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` (a number, or a sequence of numbers such as the box-delta
+    standard deviations) as a tensor, kept per (value, dtype, device):
+    uploaded once, so that a CUDA graph capture of the detect path or of
+    the train step, after its first eager run, makes no host-to-device
+    copy. A ``torch.export`` trace's stand-in tensor (a fake tensor) is not
+    kept."""
+    data = float(value) if isinstance(value, (int, float)) else tuple(float(v) for v in value)
+    key = (data, dtype, torch.device(device))
+    const = _CONSTANTS.get(key)
+    if const is None:
         with torch.inference_mode(False):
-            std = torch.tensor(key[0], dtype=dtype, device=device)
-        if type(std) is torch.Tensor:
-            _STD_DEVS[key] = std
-    return std
+            const = torch.tensor(data, dtype=dtype, device=device)
+        if type(const) is torch.Tensor:
+            _CONSTANTS[key] = const
+    return const
 
 
 def apply_box_deltas(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:

@@ -77,6 +77,11 @@ def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def backend() -> Optional[str]:
+    """The process group's backend ("nccl", "gloo"), None without a group."""
+    return dist.get_backend() if is_distributed() else None
+
+
 def process_index() -> int:
     return dist.get_rank() if is_distributed() else 0
 

@@ -9,14 +9,21 @@ so the proposals are the anchors in order) and the batch has two ground
 truth boxes per image on the first proposals, so positive ROIs reach the
 heads. Prints one JSON line per stage ("heads", "all"):
 
-- ``stages``: the median ms of each part of the step (the calls of
-  ``SLNAmodal.train_step_outputs``, the losses, the backward and the
-  optimizer, with CUDA events between them), of the batch's upload, and of
-  the whole ``trainer.train_step`` (to ``synchronize``);
-- ``kernels``: device time by kernel over one step from ``torch.profiler``,
-  the largest first (the RoIAlign backward's two kernels among them, under
-  their common prefix ``roi_align_backward_``), and
-  the device's busy share of the step's span.
+- ``stages``: the eager step part by part: the median ms of each part (the
+  calls of ``SLNAmodal.train_step_outputs``, the losses, the backward and
+  the optimizer, with CUDA events between them), of the batch's upload,
+  and of the whole ``trainer.train_step`` (to ``synchronize``);
+- ``graphed`` and ``eager``: the step as ``Trainer`` runs it on the card,
+  its captured graph (``train/compiled_step.py``: the loader's batch copied
+  into the graph's static buffers, a replay, the losses copied out), and
+  the eager ``train_step`` on the uploaded batch, timed in turns: the
+  median ms of a step to ``synchronize``, and over one step under
+  ``torch.profiler`` the device kernel ms, the kernels launched, the host's
+  launch calls (by name), the device's busy share of the step's span and
+  the time by kernel, the largest first (the RoIAlign backward's two
+  kernels among them, under their common prefix ``roi_align_backward_``);
+  ``capture_s``: the graphed step's first two calls (the eager first call
+  and the capture, with its replay); ``peak_mem_bytes``: the peak over both.
 
 Needs a card; there is no CPU fallback.
 """
@@ -40,8 +47,10 @@ from .detect.targets import detection_target_layer
 from .models.sln import SLNAmodal, TrainingOutputs
 from .ops.anchors import config_anchors
 from .profile_infer import kernel_times
+from .compiled import CudaGraphs
+from .train.compiled_step import CapturedStep
 from .train.optim import StagedSGD
-from .train.trainer import batched_losses, to_device, train_step
+from .train.trainer import batch_tensors, batched_losses, step_uniforms, to_device, train_step
 from .utils.synthetic import rpn_biased_variables
 
 
@@ -122,6 +131,37 @@ def stage_times(model: SLNAmodal, optimizer, batch: dict, generator) -> dict:
     return {name: events[i][1].elapsed_time(ev) for i, (name, ev) in enumerate(events[1:])}
 
 
+KERNELS = ("roi_align_backward_", "roi_align_kernel", "nms_mask_kernel", "nms_scan_kernel")
+
+
+def graphed_and_eager(model: SLNAmodal, optimizer, batch_np: dict, uniforms,
+                      repeats: int) -> dict:
+    """The step on its captured graph and eager, as the module docstring
+    says: {"graphed": ..., "eager": ..., "capture_s": ...}."""
+    dev = next(model.parameters()).device
+    captured = CapturedStep(lambda batch, u: train_step(model, optimizer, batch, uniforms=u),
+                            optimizer, CudaGraphs(), dev)
+    runs = {"graphed": lambda: captured(batch_tensors(batch_np), uniforms),
+            "eager": lambda: train_step(model, optimizer, to_device(batch_np, dev),
+                                        uniforms=uniforms)}
+    t = time.perf_counter()
+    runs["graphed"]()                  # its eager first call
+    runs["graphed"]()                  # the capture and its replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    walls = defaultdict(list)
+    for i in range(repeats):
+        for kind in (("graphed", "eager") if i % 2 == 0 else ("eager", "graphed")):
+            t = time.perf_counter()
+            runs[kind]()
+            torch.cuda.synchronize()
+            walls[kind].append((time.perf_counter() - t) * 1e3)
+    out = {kind: dict(step_to_sync_ms=statistics.median(walls[kind]),
+                      **kernel_times(fn, match=KERNELS)) for kind, fn in runs.items()}
+    out["capture_s"] = capture_s
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=2)
@@ -158,14 +198,12 @@ def main() -> int:
             torch.cuda.synchronize()
             stages["train_step_to_sync"].append((time.perf_counter() - t) * 1e3)
         torch.cuda.reset_peak_memory_stats(dev)
-        kernels = kernel_times(lambda: train_step(model, optimizer, batch, generator),
-                               match=("roi_align_backward_", "roi_align_kernel",
-                                      "nms_mask_kernel", "nms_scan_kernel"))
+        uniforms = step_uniforms(generator, args.batch, cfg.post_nms_rois_training)
+        sides = graphed_and_eager(model, optimizer, batch_np, uniforms, args.repeats)
         print(json.dumps({"stage": stage, "batch": args.batch, "repeats": args.repeats,
                           "stages": {k: statistics.median(v) for k, v in stages.items()},
                           "peak_mem_bytes": int(torch.cuda.max_memory_allocated(dev)),
-                          "kernels": kernels, "device": torch.cuda.get_device_name(0)}),
-              flush=True)
+                          **sides, "device": torch.cuda.get_device_name(0)}), flush=True)
         del model, optimizer
     return 0
 

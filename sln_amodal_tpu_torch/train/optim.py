@@ -145,9 +145,14 @@ class StagedSGD:
                                    nesterov=False)
         self.accumulate_steps = accumulate_steps
         self.mini_step = 0
-        # the running mean of the gradients, one tensor per trained parameter
+        # the running mean of the gradients, one tensor per trained parameter,
+        # and each micro-step's count (mini_step + 1) as a device constant:
+        # a captured step uploads nothing
         self.accumulated = ([torch.zeros_like(p) for p in self.params]
                             if accumulate_steps > 1 else None)
+        self._counts = None if self.accumulated is None else [
+            torch.tensor(i + 1, dtype=self.accumulated[0].dtype, device=self.accumulated[0].device)
+            for i in range(accumulate_steps)]
 
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)
@@ -167,10 +172,8 @@ class StagedSGD:
         if self.accumulated is not None:
             with torch.no_grad():
                 acc = self.accumulated
-                count = torch.tensor(self.mini_step + 1, dtype=acc[0].dtype,
-                                     device=acc[0].device)
                 torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc),
-                                                            count))
+                                                            self._counts[self.mini_step]))
             self.mini_step = (self.mini_step + 1) % self.accumulate_steps
             if self.mini_step:
                 return None

@@ -14,12 +14,21 @@ the validation losses are averaged too, and every process starts from
 process 0's parameters. What the JAX package's sharded step computes on the
 concatenated batch, this computes across the processes.
 
+On a card the step runs as one captured CUDA graph per stage, shape and
+accumulation phase (:mod:`.compiled_step`, the counterpart of the JAX
+package's donated ``jax.jit`` of the step), and validation's losses as a
+captured program (``compiled.CapturedProgram``, the counterpart of its
+jitted validation loss). On the CPU, and in a gloo process group, both run
+eagerly.
+
 Randomness: the target layer's draws come from a ``torch.Generator``
 seeded from ``(seed, epoch)``, so a run resumed at epoch k draws what an
 uninterrupted run drew from epoch k on (the JAX package folds the epoch
 into its key, ``trainer.py:211``). Every process draws the global batch's
 uniforms and takes its own rows (:func:`step_uniforms`), so N processes
-sample the ROIs one process samples on their concatenated batches.
+sample the ROIs one process samples on their concatenated batches. The
+draws stay on the CPU generator on every device, graphed or not: the
+captured step takes them as inputs.
 """
 
 from __future__ import annotations
@@ -29,12 +38,14 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from ..compiled import CapturedProgram, CudaGraphs
 from ..config import Config
 from ..device import resolve_device
 from ..models.sln import SLNAmodal, TrainingOutputs
 from ..parallel import multihost
 from ..utils.logging import StepTimer, log
 from . import checkpoint as ckpt_lib
+from . import compiled_step
 from . import losses as losses_lib
 from .optim import Stage, StagedSGD, StageSchedule
 
@@ -59,16 +70,22 @@ def batched_losses(out: TrainingOutputs, batch: Mapping[str, torch.Tensor]) -> D
     return {k: torch.stack([p[k] for p in per]).mean() for k in per[0]}
 
 
-def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A loader's batch on ``device``: numpy arrays are copied there,
-    tensors already there pass through (GT boxes as float32, as the JAX
-    package's step casts them)."""
+def batch_tensors(batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A loader's batch as tensors where they lie: numpy arrays wrapped
+    (no copy), tensors as they are; the GT boxes as float32, as the JAX
+    package's step casts them."""
     def tensor(v):
         return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
 
-    out = {k: tensor(batch[k]).to(device, non_blocking=True) for k in BATCH_KEYS}
+    out = {k: tensor(batch[k]) for k in BATCH_KEYS}
     out["gt_boxes"] = out["gt_boxes"].to(torch.float32)
     return out
+
+
+def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A loader's batch on ``device`` (:func:`batch_tensors`): numpy arrays
+    are copied there, tensors already there pass through."""
+    return {k: v.to(device, non_blocking=True) for k, v in batch_tensors(batch).items()}
 
 
 def loss_on(model: SLNAmodal, batch: Mapping[str, torch.Tensor],
@@ -141,6 +158,21 @@ class Trainer:
         self.epoch = 0
         self.optimizer: Optional[StagedSGD] = None
         self.step = 0               # steps of the current stage
+        # the current stage's captured step (None: eager), and validation's
+        # captured losses (made at the first validate on a card)
+        self.step_program: Optional[compiled_step.CapturedStep] = None
+        self._validation: Optional[CapturedProgram] = None
+        self._validation_names = None
+
+    def run_step(self, batch: Mapping[str, Any], uniforms) -> Dict[str, torch.Tensor]:
+        """One step of the current stage on a loader's ``batch`` with the
+        target layer's ``uniforms``: the stage's captured step on a card,
+        the eager :func:`train_step` otherwise. Returns the detached losses
+        (device tensors)."""
+        if self.step_program is None:
+            return train_step(self.model, self.optimizer, to_device(batch, self.device),
+                              uniforms=uniforms)
+        return self.step_program(batch_tensors(batch), uniforms)
 
     def train_stage(self, loader: Iterable, stage: Stage, learning_rate: float,
                     epochs: int, steps_per_epoch: Optional[int] = None, seed: int = 0,
@@ -153,6 +185,8 @@ class Trainer:
         parameters, the momentum, the accumulated gradients and the step
         counter of a run cut in the middle of the stage. A step is one
         micro-batch: the parameters move on every ``accumulate_steps``-th.
+        On a card the steps run on the stage's captured graphs
+        (:func:`.compiled_step.stage_step`), dropped when the stage ends.
         Returns the last logged losses."""
         cfg = self.config
         steps = steps_per_epoch or cfg.steps_per_epoch
@@ -165,27 +199,37 @@ class Trainer:
             self.step = ckpt_lib.restore_train_state(resume_state_path, self.model,
                                                      self.optimizer)
         stage_name = stage if isinstance(stage, str) else "custom-mask"
+        self.step_program = compiled_step.stage_step(
+            lambda batch, uniforms: train_step(self.model, self.optimizer, batch,
+                                               uniforms=uniforms),
+            self.optimizer, self.device)
         last: Dict[str, float] = {}
         it = iter(loader)
         timer = StepTimer()
-        for epoch in range(start_epoch, epochs):
-            log(f"Stage '{stage_name}' epoch {epoch + 1}/{epochs} lr={learning_rate}")
-            generator = epoch_generator(seed, epoch)
-            for step in range(steps):
-                batch = to_device(next(it), self.device)
-                uniforms = step_uniforms(generator, batch["images"].shape[0],
-                                         cfg.post_nms_rois_training)
-                losses = train_step(self.model, self.optimizer, batch, uniforms=uniforms)
-                self.step += 1
-                if step % 50 == 0 or step == steps - 1:
-                    last = {k: float(v) for k, v in losses.items()}
-                    dt = timer.tick()
-                    log(f"  step {step + 1}/{steps} "
-                        + " ".join(f"{k}={v:.4f}" for k, v in sorted(last.items()))
-                        + f" ({dt:.2f}s)")
-            self.epoch += 1
-            if on_epoch_end is not None:
-                on_epoch_end(self.epoch)
+        try:
+            for epoch in range(start_epoch, epochs):
+                log(f"Stage '{stage_name}' epoch {epoch + 1}/{epochs} lr={learning_rate}")
+                generator = epoch_generator(seed, epoch)
+                for step in range(steps):
+                    batch = next(it)
+                    uniforms = step_uniforms(generator, len(batch["images"]),
+                                             cfg.post_nms_rois_training)
+                    losses = self.run_step(batch, uniforms)
+                    self.step += 1
+                    if step % 50 == 0 or step == steps - 1:
+                        last = {k: float(v) for k, v in losses.items()}
+                        dt = timer.tick()
+                        log(f"  step {step + 1}/{steps} "
+                            + " ".join(f"{k}={v:.4f}" for k, v in sorted(last.items()))
+                            + f" ({dt:.2f}s)")
+                self.epoch += 1
+                if on_epoch_end is not None:
+                    on_epoch_end(self.epoch)
+        finally:
+            if self.step_program is not None:
+                # the graphs, their pool and the gradients in it go with the stage
+                self.step_program = None
+                self.optimizer.zero_grad()
         return last
 
     @torch.no_grad()
@@ -194,7 +238,10 @@ class Trainer:
         """Mean losses over ``steps`` validation batches; no update. In a
         process group each process runs its own batches, and each step's
         losses are averaged over the processes, as the sharded JAX
-        validation averages over the global batch."""
+        validation averages over the global batch. On a card the losses run
+        as one captured program per shape (``compiled.CapturedProgram``,
+        the counterpart of the JAX package's ``_jit_val_loss``), eagerly in
+        a gloo group."""
         steps = steps or self.config.validation_steps
         generator = torch.Generator().manual_seed(seed)
         totals: Dict[str, float] = {}
@@ -203,10 +250,33 @@ class Trainer:
             batch = to_device(next(it), self.device)
             uniforms = step_uniforms(generator, batch["images"].shape[0],
                                      self.config.post_nms_rois_training)
-            losses = mean_over_processes(loss_on(self.model, batch, uniforms=uniforms))
+            losses = self._validation_losses(batch, uniforms)
             for k, v in losses.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
         return {k: v / steps for k, v in totals.items()}
+
+    def _validation_losses(self, batch: Mapping[str, torch.Tensor],
+                           uniforms) -> Dict[str, torch.Tensor]:
+        """The batch's losses averaged over the processes: replayed from
+        the validation program on a card, eager otherwise."""
+        if (self._validation is None and CudaGraphs.captures_on(self.device)
+                and compiled_step.collectives_capturable()):
+            self._validation = CapturedProgram(self._validation_program, CudaGraphs())
+        if self._validation is None:
+            return mean_over_processes(loss_on(self.model, batch, uniforms=uniforms))
+        (values,) = self._validation("validate", *(batch[k] for k in BATCH_KEYS),
+                                     *(u.to(self.device) for u in uniforms))
+        return dict(zip(self._validation_names, values.unbind()))
+
+    def _validation_program(self, *tensors: torch.Tensor):
+        """Validation's program: the six batch tensors and the two uniform
+        rows in, the losses (averaged over the processes) out as one vector
+        in the order of ``_validation_names``."""
+        n = len(BATCH_KEYS)
+        losses = mean_over_processes(loss_on(self.model, dict(zip(BATCH_KEYS, tensors[:n])),
+                                             uniforms=tensors[n:]))
+        self._validation_names = sorted(losses)
+        return (torch.stack([losses[k] for k in self._validation_names]),)
 
     def train(self, loader: Iterable, steps_per_epoch: Optional[int] = None,
               sticky_freeze: bool = False,

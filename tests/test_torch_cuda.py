@@ -618,3 +618,131 @@ def test_a_capture_that_syncs_raises(cuda_device):
     # the card is usable, and a capturable program captures after it
     ok = CapturedProgram(lambda t: (t * 2,), CudaGraphs())
     assert torch.equal(ok("ok", x)[0], x * 2) and ok.captures == 1
+
+
+# ------------------------------------------------- the captured train step --
+
+TRAIN = dict(SMALL, post_nms_rois_training=64, train_rois_per_image=16, max_gt_instances=8,
+             batch_size=2, param_dtype="float32")
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (no benchmark), restored after."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def graphed_lockstep(device, dtype, stage, accumulate_steps, steps):
+    """``Trainer`` on the card (its captured step) in lockstep with the
+    plain ``train_step``, bit for bit after every step
+    (``torch_port_helpers.lockstep``); returns (trainer, its captured step,
+    the wrappers' launches per step)."""
+    from sln_amodal_tpu_torch.profile_train import make_batch
+    from sln_amodal_tpu_torch.train.trainer import epoch_generator, step_uniforms
+    from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
+    from torch_port_helpers import lockstep
+
+    cfg = Config(**dict(TRAIN, compute_dtype=dtype))
+    sd = rpn_biased_variables(init_params(cfg, seed=0, device="cpu"))
+    batches = [make_batch(cfg, 2, seed) for seed in (0, 1)]
+    draws = [step_uniforms(epoch_generator(0, e), 2, cfg.post_nms_rois_training)
+             for e in range(steps)]
+    kernels = (NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL)
+    counts, launches = [[k.launches for k in kernels]], []
+
+    def on_step(epoch, trainer, losses):
+        # the plain step of the lockstep launched each kernel once more
+        now = [k.launches for k in kernels]
+        launches.append([a - b - n for a, b, n in zip(now, counts[-1], (1, 2, 2))])
+        counts.append(now)
+        assert all(torch.isfinite(v) for v in losses.values())
+
+    trainer, program = lockstep(cfg, sd, batches, draws, stage, 1e-3, device=device,
+                                accumulate_steps=accumulate_steps, on_step=on_step)
+    return trainer, program, launches
+
+
+@pytest.mark.parametrize("dtype,stage,accumulate_steps,steps", [
+    ("float32", "heads", 1, 3), ("bfloat16", "all", 1, 3),
+    ("float32", "all", 2, 6), ("bfloat16", "heads", 2, 6)])
+def test_graphed_train_step_is_bit_equal_to_eager(cuda_device, deterministic_cudnn, dtype,
+                                                  stage, accumulate_steps, steps):
+    """The captured step (first call of a key eager, the second captured
+    and replayed, replays after) equals the plain step bit for bit after
+    every step: losses, parameters, momentum, accumulator. The wrappers
+    count the eager first call and the capture of each key (NMS 1, RoIAlign
+    2, backward 2), and nothing in a replay."""
+    trainer, program, launches = graphed_lockstep(cuda_device, dtype, stage,
+                                                  accumulate_steps, steps)
+    keys = accumulate_steps
+    assert program.captures == keys and [k[0] for k in program.keys()] == list(range(keys))
+    want = [[1, 2, 2]] * (2 * keys) + [[0, 0, 0]] * (steps - 2 * keys)
+    assert launches == want
+    assert trainer.step_program is None
+
+
+def test_graphed_step_in_nccl_group_is_bit_equal_to_eager(cuda_device, deterministic_cudnn):
+    """In a one-process NCCL group the step's all-reduces of the gradients
+    and of the losses are captured with it: three steps equal the plain
+    step without a group, bit for bit."""
+    from sln_amodal_tpu_torch.parallel import multihost
+
+    multihost.init_group(f"localhost:{free_port()}", 1, 0, "nccl")
+    try:
+        _, program, _ = graphed_lockstep(cuda_device, "float32", "all", 1, 3)
+    finally:
+        multihost.shutdown()
+    assert program.captures == 1
+
+
+def test_roi_align_backward_captures(cuda_device):
+    """The RoIAlign backward op (its two kernels set their shared memory
+    attribute at each launch) captured at the train step's shapes (batch 2,
+    100 ROIs, pool 16, C=256, above 48 KB of shared memory a block) and
+    replayed twice equals its eager launch."""
+    from sln_amodal_tpu_torch.compiled import CapturedProgram, CudaGraphs
+
+    rng = np.random.RandomState(9)
+    shapes = [(s, s, 256) for s in (256, 128, 64, 32)]
+    boxes = _boxes(2, 100).to(cuda_device, torch.float32)
+    grad = torch.from_numpy(rng.randn(2, 100, 16, 16, 256).astype(np.float32)).to(cuda_device)
+    program = CapturedProgram(lambda g, b: pyramid_roi_align_backward(
+        g, b, shapes, (16, 16), (1024, 1024), torch.float32), CudaGraphs())
+    want = pyramid_roi_align_backward(grad, boxes, shapes, (16, 16), (1024, 1024),
+                                      torch.float32)
+    before = ROI_ALIGN_BACKWARD_KERNEL.launches
+    for _ in range(3):
+        got = program("backward", grad, boxes)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # the warm-up and the capture
+    assert ROI_ALIGN_BACKWARD_KERNEL.launches == before + 2 and program.captures == 1
+
+
+def test_a_step_that_syncs_in_its_capture_raises(cuda_device):
+    """A step that waits for the device runs as its key's eager first call,
+    then makes the capture at the second call raise, naming the key; the
+    thread's stream is the one it was before."""
+    from sln_amodal_tpu_torch.compiled import CudaGraphs
+    from sln_amodal_tpu_torch.train.compiled_step import CapturedStep
+
+    class Optimizer:
+        mini_step, accumulate_steps = 0, 1
+
+        def zero_grad(self):
+            pass
+
+    def step(batch, uniforms):
+        x = batch["x"]
+        return {"total": x.sum() * float(x.sum()) + uniforms[0].sum()}
+
+    captured = CapturedStep(step, Optimizer(), CudaGraphs(), cuda_device)
+    inputs = ({"x": torch.ones(4)}, (torch.zeros(2, 3),))
+    stream = torch.cuda.current_stream(cuda_device)
+    assert float(captured(*inputs)["total"]) == 16.0
+    with pytest.raises(RuntimeError, match=r"train step for key \(0, \(\('x', \(4,\)"):
+        captured(*inputs)
+    assert captured.captures == 0 and captured.keys() == []
+    assert torch.cuda.current_stream(cuda_device) == stream

@@ -51,6 +51,7 @@ from sln_amodal_tpu_torch.train.optim import StagedSGD
 from sln_amodal_tpu_torch.train.trainer import Trainer, to_device, train_step
 from sln_amodal_tpu_torch.utils.synthetic import rpn_biased_variables
 from torch_port_helpers import random_variables
+from torch_port_helpers import shared  # noqa: F401  (fixture)
 
 CFG = dict(image_size=64, backbone="resnet50", glm_input_size=17, pre_nms_limit=400,
            post_nms_rois_training=32, post_nms_rois_inference=32, train_rois_per_image=8,
@@ -74,10 +75,12 @@ def shared_weights(cfg_kwargs=CFG):
     return biased, rpn_biased_variables(params_from_jax(variables))
 
 
-@pytest.fixture(scope="module")
-def shared():
-    """(JAX variables, the port's state_dict of the same weights, batch)."""
-    return (*shared_weights(), make_batch(Config(**CFG), 2, 0))
+def jax_step_draws(rng, rois):
+    """The target layer's uniforms (pos, neg) [2, rois] that the JAX step
+    draws from its key ``rng`` for a batch of two, as torch tensors."""
+    pairs = [jax.random.split(k) for k in jax.random.split(rng, 2)]
+    return tuple(torch.from_numpy(np.stack([np.asarray(jax.random.uniform(k[j], (rois,)))
+                                            for k in pairs])) for j in (0, 1))
 
 
 def jax_reference_step(variables, batch, stages=("heads", "all"), cfg_kwargs=CFG):
@@ -109,10 +112,7 @@ def jax_reference_step(variables, batch, stages=("heads", "all"), cfg_kwargs=CFG
                 return optax.apply_updates(params, updates)
 
             updated[stage] = params_from_jax(update(grads, variables))
-        p = cfg.post_nms_rois_training
-        pairs = [jax.random.split(k) for k in jax.random.split(rng, 2)]
-        draws = tuple(torch.from_numpy(np.stack([np.asarray(jax.random.uniform(k[j], (p,)))
-                                                 for k in pairs])) for j in (0, 1))
+        draws = jax_step_draws(rng, cfg.post_nms_rois_training)
     return ({k: float(v) for k, v in losses.items()}, updated, draws,
             np.asarray(class_ids))
 
@@ -354,7 +354,7 @@ import importlib, sys
 for name in ("jax", "jaxlib", "flax", "optax", "sln_amodal_tpu"):
     sys.modules[name] = None
 for name in ("detect.targets", "train.losses", "train.optim", "train.trainer",
-             "train.checkpoint", "data.pipeline", "utils.synthetic", "cli.train",
+             "train.compiled_step", "compiled", "train.checkpoint", "data.pipeline", "utils.synthetic", "cli.train",
              "ops.roi_align_cuda", "parallel.mesh", "parallel.multihost"):
     importlib.import_module("sln_amodal_tpu_torch." + name)
 print("ok")

@@ -93,3 +93,95 @@ def one_intra_op_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def shared():
+    """(JAX variables, the port's state_dict of the same weights, batch) of
+    the training slice (``test_torch_train_slice.py``): its reduced float64
+    configuration, its seeded RPN-biased weights and ``make_batch``'s batch
+    of two."""
+    from sln_amodal_tpu_torch.config import Config
+    from sln_amodal_tpu_torch.profile_train import make_batch
+    from test_torch_train_slice import CFG, shared_weights
+
+    return (*shared_weights(), make_batch(Config(**CFG), 2, 0))
+
+
+class Batches:
+    """A loader that yields ``batches`` in turn, forever."""
+
+    def __init__(self, *batches):
+        self.batches = batches
+
+    def __iter__(self):
+        while True:
+            yield from self.batches
+
+
+def momentum(opt):
+    """A ``StagedSGD``'s momentum buffers (None before its first update)."""
+    return [opt.sgd.state[p].get("momentum_buffer") for p in opt.params]
+
+
+def assert_same_state(trainer, model, opt):
+    """The trainer's parameters, momentum and accumulator equal those of
+    the plain run (``model``, ``opt``) bit for bit."""
+    got, want = dict(trainer.model.named_parameters()), dict(model.named_parameters())
+    for k in want:
+        assert torch.equal(got[k].detach(), want[k].detach()), k
+    for a, b in zip(momentum(trainer.optimizer), momentum(opt)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert trainer.optimizer.mini_step == opt.mini_step
+    if opt.accumulated is not None:
+        assert all(torch.equal(a, b) for a, b in
+                   zip(trainer.optimizer.accumulated, opt.accumulated))
+
+
+def lockstep(cfg, sd, batches, draws, stage, lr, device="cpu", accumulate_steps=1,
+             on_step=None):
+    """``Trainer.train_stage`` on ``device`` from ``sd``, one step per epoch
+    over ``batches`` in turn with each step's ``draws`` (the target layer's
+    uniforms), and after every step the plain ``train_step`` on a second
+    model from ``sd`` with the same batch and draws: losses, parameters,
+    momentum and accumulator bit-equal. ``on_step(epoch, trainer, losses)``
+    runs after each step's check. Returns (the trainer, the last step's
+    captured step: ``trainer.step_program`` during the stage)."""
+    from sln_amodal_tpu_torch.models.sln import SLNAmodal
+    from sln_amodal_tpu_torch.train import trainer as trainer_mod
+    from sln_amodal_tpu_torch.train.optim import StagedSGD
+
+    model = SLNAmodal(cfg, device=device)
+    model.load_state_dict(sd)
+    opt = StagedSGD(model, stage, lr, accumulate_steps=accumulate_steps)
+    trainer = trainer_mod.Trainer(cfg, sd, device=device)
+    seen = {"steps": 0}
+    run_step = trainer.run_step
+
+    def recorded(batch, uniforms):
+        seen["program"] = trainer.step_program
+        seen["losses"] = run_step(batch, uniforms)
+        return seen["losses"]
+
+    def end(epoch):
+        i = epoch - 1
+        want = trainer_mod.train_step(
+            model, opt, trainer_mod.to_device(batches[i % len(batches)], device),
+            uniforms=draws[i])
+        assert set(seen["losses"]) == set(want)
+        for k in want:
+            assert torch.equal(seen["losses"][k], want[k]), (epoch, k)
+        assert_same_state(trainer, model, opt)
+        seen["steps"] += 1
+        if on_step is not None:
+            on_step(epoch, trainer, seen["losses"])
+
+    trainer.run_step = recorded
+    with pytest.MonkeyPatch.context() as mp:
+        it = iter(draws)
+        mp.setattr(trainer_mod, "step_uniforms", lambda generator, b, rois: next(it))
+        trainer.train_stage(Batches(*batches), stage, lr, epochs=len(draws),
+                            steps_per_epoch=1, on_epoch_end=end,
+                            accumulate_steps=accumulate_steps)
+    assert seen["steps"] == len(draws)
+    return trainer, seen["program"]
