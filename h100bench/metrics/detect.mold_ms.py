@@ -1,0 +1,7 @@
+"""Host milliseconds of the program's ``detector.mold`` spans (PIL resize) per request."""
+
+from h100bench.program_spans import ms_per_dispatch
+
+
+def read(records):
+    return ms_per_dispatch(records, "detector.mold")

@@ -23,7 +23,10 @@ host's cards (unless ``--device cpu``), streams its slice of the dataset
 and trains on ``--batch_size`` images per step, and process 0 writes the
 checkpoints. ``--trace_dir DIR`` records the whole run with
 ``torch.profiler`` (``utils/profiling.py``; the card's kernels too on
-``--device cuda``) and writes a Chrome / TensorBoard trace into DIR.
+``--device cuda``) and writes a Chrome / TensorBoard trace into DIR, where
+the program's spans (``predict.*``, ``detector.*``) are host ranges, and
+``DIR/spans.json``, the same spans with their request ids, parents and
+counts.
 """
 
 from __future__ import annotations
@@ -172,8 +175,9 @@ def load_eval_dataset(args):
 def load_batch(dataset: AmodalDataset, chunk: List[int], batch_size: int) -> List[np.ndarray]:
     """The chunk's images, the last repeated up to ``batch_size``: every
     batch has the same shape."""
-    images = [dataset.load_image(i) for i in chunk]
-    return images + [images[-1]] * (batch_size - len(images))
+    with profiling.span("predict.load", images=len(chunk)):
+        images = [dataset.load_image(i) for i in chunk]
+        return images + [images[-1]] * (batch_size - len(images))
 
 
 def coco_results(detector: Detector, dataset: AmodalDataset, chunk: List[int],
@@ -181,10 +185,12 @@ def coco_results(detector: Detector, dataset: AmodalDataset, chunk: List[int],
     """Wait for a dispatched batch; the result dicts of its real images, RLE
     encoded straight off each box crop."""
     results = []
-    for image_id, r in zip(chunk, detector.collect_crops(pending)):
-        results.extend(build_coco_results_crops(
-            dataset.image_info[image_id]["id"], r["rois"], r["class_ids"],
-            r["scores"], r["crops"], r["image_shape"]))
+    with profiling.span("predict.drain", pending.request, images=len(chunk)):
+        for image_id, r in zip(chunk, detector.collect_crops(pending)):
+            with profiling.span("predict.encode", detections=len(r["rois"])):
+                results.extend(build_coco_results_crops(
+                    dataset.image_info[image_id]["id"], r["rois"], r["class_ids"],
+                    r["scores"], r["crops"], r["image_shape"]))
     return results
 
 
@@ -192,7 +198,10 @@ def predict(detector: Detector, dataset: AmodalDataset, image_ids: List[int],
             batch_size: int, progress: bool = True) -> List[dict]:
     """The software-pipelined loop: dispatch batch N, then unmold and encode
     batch N-1 on the host (the reference runs the two strictly in turn,
-    ``amodal_train.py:463-497``)."""
+    ``amodal_train.py:463-497``). Spans (``utils/profiling.py``): a
+    ``predict.load`` per batch, then a ``predict.drain`` with the batch's
+    request id around its ``detector.collect`` and one ``predict.encode``
+    per image."""
     results: List[dict] = []
     pending = None
     done = 0

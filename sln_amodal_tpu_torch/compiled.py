@@ -34,6 +34,8 @@ from typing import Callable, Hashable, NamedTuple, Tuple
 
 import torch
 
+from .utils import profiling
+
 MAX_ENTRIES = 16   # the JAX package's lru_cache(maxsize=16)
 
 
@@ -89,8 +91,10 @@ class CudaGraphs:
         ``torch.cuda.graph`` does, the garbage is collected and the caching
         allocator's free blocks are returned to the card: the graph's pool
         cannot draw on blocks that eager work left cached (a batch-8 train
-        step's capture ran out of memory beside 45 GB of them)."""
-        with torch.cuda.device(device):
+        step's capture ran out of memory beside 45 GB of them). Recorded as
+        a ``graph.capture`` span: one in a steady loop means a graph was
+        built again."""
+        with profiling.span("graph.capture"), torch.cuda.device(device):
             torch.cuda.synchronize()
             gc.collect()
             torch.cuda.empty_cache()

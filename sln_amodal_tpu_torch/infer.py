@@ -7,6 +7,14 @@ On the card the device program runs as one captured CUDA graph per shape
 (``compiled.py``), as the JAX package runs it as one jitted program. With a
 mesh (``parallel/mesh.py``) each batch is split over its devices, one
 replica of the model on each.
+
+Each ``dispatch`` is a request, numbered from 0 per ``Detector``; its
+spans (``utils/profiling.py``) carry that id: ``detector.dispatch`` with
+``detector.mold``, ``detector.upload`` and ``detector.replay`` inside it,
+and ``detector.collect`` with ``detector.wait`` and one
+``detector.unmold`` per image. ``detector.wait`` is the host blocked on the
+card: the outputs' copy to the host waits for all the work queued on the
+launching stream (in a pipelined loop, the next batch's too), then copies.
 """
 
 from __future__ import annotations
@@ -21,15 +29,18 @@ from .config import Config
 from .device import resolve_device
 from .parallel.mesh import make_mesh, shard_batch
 from .utils import image as image_utils
+from .utils import profiling
 
 
 class PendingDetect(NamedTuple):
     """An in-flight detect batch: host inputs + device outputs (with a
-    mesh, a list of each device's outputs, pad rows included)."""
+    mesh, a list of each device's outputs, pad rows included) and the
+    dispatch's request id."""
 
     images: List[np.ndarray]
     windows: np.ndarray
     out: Any
+    request: Optional[int] = None
 
 
 def _program(model, mean: torch.Tensor, detect_only: bool):
@@ -107,59 +118,76 @@ class Detector:
         key = (self.config.compute_dtype, self.detect_only)
         return self.programs[replica](key, images_u8, windows)
 
+    dispatches = 0      # dispatch calls so far: the next request id
+
     def dispatch(self, images: List[np.ndarray]) -> PendingDetect:
         """Mold + launch the device work without waiting for it (CUDA
         launches are asynchronous)."""
-        molded, windows = image_utils.mold_inputs(images, self.config)
-        if self.mesh is None:
-            out = self._launch(0, torch.from_numpy(molded).to(self.device),
-                               torch.as_tensor(windows, dtype=torch.float32,
-                                               device=self.device))
-            return PendingDetect(images=images, windows=windows, out=out)
-        # splitting over the mesh needs a divisible batch: repeat the last
-        # row; collect walks only the real images
-        pad = (-len(images)) % len(self.mesh)
-        if pad:
-            molded = np.concatenate([molded, np.repeat(molded[-1:], pad, axis=0)])
-            windows = np.concatenate([windows, np.repeat(windows[-1:], pad, axis=0)])
-        blocks = shard_batch((torch.from_numpy(molded),
-                              torch.as_tensor(windows, dtype=torch.float32)), self.mesh)
-        return PendingDetect(images=images, windows=windows,
-                             out=[self._launch(i, *block) for i, block in enumerate(blocks)])
+        request = self.dispatches
+        self.dispatches += 1
+        with profiling.span("detector.dispatch", request, images=len(images)):
+            with profiling.span("detector.mold"):
+                molded, windows = image_utils.mold_inputs(images, self.config)
+            if self.mesh is not None:
+                # splitting over the mesh needs a divisible batch: repeat the
+                # last row; collect walks only the real images
+                pad = (-len(images)) % len(self.mesh)
+                if pad:
+                    molded = np.concatenate([molded, np.repeat(molded[-1:], pad, axis=0)])
+                    windows = np.concatenate([windows, np.repeat(windows[-1:], pad, axis=0)])
+            devices = [self.device] if self.mesh is None else list(self.mesh)
+            with profiling.span("detector.upload") as upload:
+                blocks = shard_batch((torch.from_numpy(molded),
+                                      torch.as_tensor(windows, dtype=torch.float32)), devices)
+                upload.count(bytes=sum(t.nbytes for block in blocks for t in block))
+            with profiling.span("detector.replay"):
+                out = [self._launch(i, *block) for i, block in enumerate(blocks)]
+            return PendingDetect(images, windows, out[0] if self.mesh is None else out,
+                                 request)
 
     def _fetch(self, pending: PendingDetect):
         def host(field):
             if self.mesh is None:
                 return getattr(pending.out, field).cpu().numpy()
             return np.concatenate([getattr(o, field).cpu().numpy() for o in pending.out])
-        if not self.detect_only:
-            self.last_global_label = host("global_label")
-        return host("detections"), host("masks")
+
+        with profiling.span("detector.wait") as span:
+            if not self.detect_only:
+                self.last_global_label = host("global_label")
+            detections, masks = host("detections"), host("masks")
+            span.count(bytes=detections.nbytes + masks.nbytes)
+        return detections, masks
 
     def collect(self, pending: PendingDetect) -> List[Dict[str, np.ndarray]]:
         """Wait for a dispatched batch and unmold it to the reference's
         per-image output contract."""
-        detections, masks = self._fetch(pending)
-        results = []
-        for i, image in enumerate(pending.images):
-            rois, class_ids, scores, full_masks = image_utils.unmold_detections(
-                detections[i], masks[i], image.shape, pending.windows[i])
-            results.append({"rois": rois, "class_ids": class_ids,
-                            "scores": scores, "masks": full_masks})
-        return results
+        with profiling.span("detector.collect", pending.request, images=len(pending.images)):
+            detections, masks = self._fetch(pending)
+            results = []
+            for i, image in enumerate(pending.images):
+                with profiling.span("detector.unmold") as span:
+                    rois, class_ids, scores, full_masks = image_utils.unmold_detections(
+                        detections[i], masks[i], image.shape, pending.windows[i])
+                    span.count(detections=len(rois))
+                results.append({"rois": rois, "class_ids": class_ids,
+                                "scores": scores, "masks": full_masks})
+            return results
 
     def collect_crops(self, pending: PendingDetect) -> List[Dict[str, Any]]:
         """Like :meth:`collect`, with masks as binary box crops (``"crops"``,
         a list of [h, w] uint8) instead of pasted [H, W, N] frames."""
-        detections, masks = self._fetch(pending)
-        results = []
-        for i, image in enumerate(pending.images):
-            rois, class_ids, scores, crops = image_utils.unmold_detections_parts(
-                detections[i], masks[i], image.shape, pending.windows[i])
-            results.append({"rois": rois, "class_ids": class_ids,
-                            "scores": scores, "crops": crops,
-                            "image_shape": image.shape})
-        return results
+        with profiling.span("detector.collect", pending.request, images=len(pending.images)):
+            detections, masks = self._fetch(pending)
+            results = []
+            for i, image in enumerate(pending.images):
+                with profiling.span("detector.unmold") as span:
+                    rois, class_ids, scores, crops = image_utils.unmold_detections_parts(
+                        detections[i], masks[i], image.shape, pending.windows[i])
+                    span.count(detections=len(rois))
+                results.append({"rois": rois, "class_ids": class_ids,
+                                "scores": scores, "crops": crops,
+                                "image_shape": image.shape})
+            return results
 
     def detect(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """images: list of [H, W, 3] uint8 arrays (any sizes).

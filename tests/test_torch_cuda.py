@@ -620,6 +620,45 @@ def test_a_capture_that_syncs_raises(cuda_device):
     assert torch.equal(ok("ok", x)[0], x * 2) and ok.captures == 1
 
 
+def test_graphed_dispatch_spans(cuda_device):
+    """On the card: the first dispatch's ``detector.replay`` holds the
+    capture's ``graph.capture`` span, a replay holds none; each collect's
+    ``detector.wait`` lies inside it; a mesh dispatch records one upload
+    and one replay; results are the same with the recorder off."""
+    from sln_amodal_tpu_torch.utils import profiling
+
+    det = graph_detector(cuda_device, "bfloat16")
+    mesh = graph_detector(cuda_device, "bfloat16", mesh=(cuda_device, cuda_device))
+    images = seeded_images(7)
+    profiling.clear()
+    first = det.dispatch(images)
+    results = det.collect(first)
+    again = det.detect(images)
+    spans = profiling.spans()
+    (capture,) = [s for s in spans if s.name == "graph.capture"]
+    assert (capture.parent, capture.request) == ("detector.replay", first.request)
+    waits = {s.request: s for s in spans if s.name == "detector.wait"}
+    collects = {s.request: s for s in spans if s.name == "detector.collect"}
+    assert set(waits) == set(collects) == {first.request, first.request + 1}
+    for r, w in waits.items():
+        assert collects[r].start_ns <= w.start_ns and w.end_ns <= collects[r].end_ns
+        assert w.counts["bytes"] > 0
+    profiling.clear()
+    mesh.collect(mesh.dispatch(images))
+    spans = profiling.spans()
+    assert [len([s for s in spans if s.name == n])
+            for n in ("detector.upload", "detector.replay", "detector.wait")] == [1, 1, 1]
+    was = profiling.recording(False)
+    try:
+        off = det.detect(images)
+    finally:
+        profiling.recording(was)
+    for got in (again, off):
+        for g, w in zip(got, results):
+            for key in ("rois", "class_ids", "scores", "masks"):
+                np.testing.assert_array_equal(g[key], w[key])
+
+
 # ------------------------------------------------- the captured train step --
 
 TRAIN = dict(SMALL, post_nms_rois_training=64, train_rois_per_image=16, max_gt_instances=8,
