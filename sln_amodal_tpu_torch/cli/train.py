@@ -187,10 +187,13 @@ def coco_results(detector: Detector, dataset: AmodalDataset, chunk: List[int],
     results = []
     with profiling.span("predict.drain", pending.request, images=len(chunk)):
         for image_id, r in zip(chunk, detector.collect_crops(pending)):
-            with profiling.span("predict.encode", detections=len(r["rois"])):
-                results.extend(build_coco_results_crops(
+            with profiling.span("predict.encode", detections=len(r["rois"])) as encode:
+                image_results = build_coco_results_crops(
                     dataset.image_info[image_id]["id"], r["rois"], r["class_ids"],
-                    r["scores"], r["crops"], r["image_shape"]))
+                    r["scores"], r["crops"], r["image_shape"])
+                encode.count(rle_bytes=sum(len(d["segmentation"]["counts"])
+                                           for d in image_results))
+                results.extend(image_results)
     return results
 
 
@@ -201,7 +204,8 @@ def predict(detector: Detector, dataset: AmodalDataset, image_ids: List[int],
     ``amodal_train.py:463-497``). Spans (``utils/profiling.py``): a
     ``predict.load`` per batch, then a ``predict.drain`` with the batch's
     request id around its ``detector.collect`` and one ``predict.encode``
-    per image."""
+    per image (detections; ``rle_bytes``, the characters of its RLE
+    strings)."""
     results: List[dict] = []
     pending = None
     done = 0

@@ -42,16 +42,17 @@ def build_coco_results(image_id, rois, class_ids, scores, masks) -> List[dict]:
 def build_coco_results_crops(image_id, rois, class_ids, scores, crops,
                              image_shape) -> List[dict]:
     """``build_coco_results`` from binary box crops instead of full-frame
-    masks: the RLE is encoded straight off each crop + its box offsets
-    (``rle.encode_pasted``), skipping the [H, W] zero-frame paste — output
-    dicts are bit-identical (pinned by tests/test_torch_eval.py)."""
+    masks: every crop's RLE is encoded straight off the crop and its box
+    offsets, all of the image's in one native call
+    (``rle.encode_pasted_many``), skipping the [H, W] zero-frame paste —
+    output dicts are bit-identical (pinned by tests/test_torch_eval.py)."""
     if rois is None or len(rois) == 0:
         return []
     H, W = int(image_shape[0]), int(image_shape[1])
+    counts = rle_api.encode_pasted_many(crops, rois[:, 0], rois[:, 1], H, W)
     results = []
     for i in range(rois.shape[0]):
         bbox = np.around(rois[i], 1)
-        y1, x1 = int(rois[i][0]), int(rois[i][1])
         results.append(
             {
                 "image_id": image_id,
@@ -63,7 +64,7 @@ def build_coco_results_crops(image_id, rois, class_ids, scores, crops,
                     float(bbox[2] - bbox[0]),
                 ],
                 "score": float(scores[i]),
-                "segmentation": rle_api.encode_pasted(crops[i], y1, x1, H, W),
+                "segmentation": {"size": [H, W], "counts": counts[i]},
             }
         )
     return results

@@ -85,12 +85,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     i32p = ctypes.POINTER(ctypes.c_int32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     dp = ctypes.POINTER(ctypes.c_double)
+    vp = ctypes.c_void_p
     i = ctypes.c_int
 
     lib.sln_rle_encode.restype = i
     lib.sln_rle_encode.argtypes = [u8p, i, i, u32p]
     lib.sln_rle_encode_pasted.restype = i
     lib.sln_rle_encode_pasted.argtypes = [u8p] + [i] * 6 + [u32p]
+    lib.sln_rle_encode_pasted_strings.restype = ctypes.c_long
+    lib.sln_rle_encode_pasted_strings.argtypes = [vp, vp, i, i, i, vp, vp]
     lib.sln_rle_decode.restype = None
     lib.sln_rle_decode.argtypes = [u32p, i, u8p, ctypes.c_long]
     lib.sln_rle_area.restype = ctypes.c_long

@@ -59,6 +59,64 @@ static std::vector<u32> zip_runs(const u32* a, int ma, const u32* b, int mb,
   return out;
 }
 
+// Runs of an H x W zero frame with a binary [h, w] crop pasted at
+// (y1, x1): column-major, alternating, zeros first. The crop's pixel (i, j)
+// is crop[i * rs + j * cs]: (w, 1) for a row-major crop, (1, h) for a
+// column-major one.
+inline int pasted_runs(const u8* crop, long rs, long cs, int h, int w, int y1,
+                       int x1, int H, int W, u32* counts_out) {
+  int m = 0;
+  u8 prev = 0;
+  u32 run = 0;
+  auto append = [&](u8 v, long c) {
+    if (c <= 0) return;
+    if (v == prev) {
+      run += u32(c);
+      return;
+    }
+    counts_out[m++] = run;
+    prev = v;
+    run = u32(c);
+  };
+  append(0, long(x1) * H);               // all-zero columns left of the box
+  for (int j = 0; j < w; ++j) {          // frame column x1+j
+    const u8* col = crop + long(j) * cs;
+    append(0, y1);
+    int i = 0;                           // crop column j, run-compressed
+    while (i < h) {
+      u8 v = col[long(i) * rs] ? 1 : 0;
+      int k = i + 1;
+      while (k < h && (col[long(k) * rs] ? 1 : 0) == v) ++k;
+      append(v, k - i);
+      i = k;
+    }
+    append(0, H - y1 - h);
+  }
+  append(0, long(W - x1 - w) * H);       // all-zero columns right of the box
+  counts_out[m++] = run;
+  return m;
+}
+
+// 6-bit LEB128-style codec (ascii 48..111), delta vs cnts[i-2] for i>2.
+// Writes no terminator; returns the chars written.
+inline int counts_to_chars(const u32* counts, int m, char* out) {
+  int p = 0;
+  for (int i = 0; i < m; ++i) {
+    long x = long(counts[i]);
+    if (i > 2) x -= long(counts[i - 2]);
+    bool more = true;
+    while (more) {
+      char c = char(x & 0x1f);
+      x >>= 5;
+      more = (c & 0x10) ? (x != -1) : (x != 0);
+      if (more) c |= 0x20;
+      c += 48;
+      out[p++] = c;
+    }
+  }
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -88,35 +146,41 @@ int sln_rle_encode(const u8* mask, int h, int w, u32* counts_out) {
 // zero frame, so full-frame encoding wastes ~2000x on small boxes.
 int sln_rle_encode_pasted(const u8* crop, int h, int w, int y1, int x1,
                           int H, int W, u32* counts_out) {
-  int m = 0;
-  u8 prev = 0;
-  u32 run = 0;
-  auto append = [&](u8 v, long c) {
-    if (c <= 0) return;
-    if (v == prev) {
-      run += u32(c);
-      return;
-    }
-    counts_out[m++] = run;
-    prev = v;
-    run = u32(c);
-  };
-  append(0, long(x1) * H);               // all-zero columns left of the box
-  for (int j = 0; j < w; ++j) {          // frame column x1+j
-    append(0, y1);
-    int i = 0;                           // crop column j, run-compressed
-    while (i < h) {
-      u8 v = crop[long(i) * w + j] ? 1 : 0;
-      int k = i + 1;
-      while (k < h && (crop[long(k) * w + j] ? 1 : 0) == v) ++k;
-      append(v, k - i);
-      i = k;
-    }
-    append(0, H - y1 - h);
+  return pasted_runs(crop, w, 1, h, w, y1, x1, H, W, counts_out);
+}
+
+// COCO strings of n binary crops, each pasted into its own H x W zero
+// frame: equal, crop by crop, to sln_rle_to_string of
+// sln_rle_encode_pasted. `crops` holds the crops' row-major pixels back to
+// back, `dims` (h, w, y1, x1) per crop. The strings are written back to back
+// into `out` (crop i's at [offsets[i], offsets[i+1])), which holds
+// 7 * sum(w * (h + 2) + 3) chars: a crop has at most w * (h + 2) + 3 runs and
+// a run takes at most 7 chars. Returns the chars written. Each crop is
+// transposed once, so its runs are scanned down contiguous columns.
+long sln_rle_encode_pasted_strings(const u8* crops, const int* dims, int n,
+                                   int H, int W, char* out, long* offsets) {
+  long most_pixels = 0, most_runs = 0;
+  for (int k = 0; k < n; ++k) {
+    const long h = dims[4 * k], w = dims[4 * k + 1];
+    most_pixels = std::max(most_pixels, h * w);
+    most_runs = std::max(most_runs, w * (h + 2) + 3);
   }
-  append(0, long(W - x1 - w) * H);       // all-zero columns right of the box
-  counts_out[m++] = run;
-  return m;
+  std::vector<u8> cols(static_cast<size_t>(most_pixels) + 1);
+  std::vector<u32> runs(static_cast<size_t>(most_runs));
+  long p = 0;
+  offsets[0] = 0;
+  for (int k = 0; k < n; ++k) {
+    const int h = dims[4 * k], w = dims[4 * k + 1];
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j)
+        cols[long(j) * h + i] = crops[long(i) * w + j];
+    const int m = pasted_runs(cols.data(), 1, h, h, w, dims[4 * k + 2],
+                              dims[4 * k + 3], H, W, runs.data());
+    p += counts_to_chars(runs.data(), m, out + p);
+    offsets[k + 1] = p;
+    crops += long(h) * w;
+  }
+  return p;
 }
 
 // Decode runs into a column-major binary mask of size h*w.
@@ -361,22 +425,9 @@ int sln_rle_from_poly(const double* xy, int k, int h, int w, u32* out,
   return int(b.size());
 }
 
-// 6-bit LEB128-style codec (ascii 48..111), delta vs cnts[i-2] for i>2.
+// The COCO string of m runs (counts_to_chars), NUL-terminated.
 int sln_rle_to_string(const u32* counts, int m, char* out) {
-  int p = 0;
-  for (int i = 0; i < m; ++i) {
-    long x = long(counts[i]);
-    if (i > 2) x -= long(counts[i - 2]);
-    bool more = true;
-    while (more) {
-      char c = char(x & 0x1f);
-      x >>= 5;
-      more = (c & 0x10) ? (x != -1) : (x != 0);
-      if (more) c |= 0x20;
-      c += 48;
-      out[p++] = c;
-    }
-  }
+  const int p = counts_to_chars(counts, m, out);
   out[p] = 0;
   return p;
 }

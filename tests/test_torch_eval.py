@@ -153,6 +153,38 @@ def test_build_coco_results_equal_jax(seed):
     assert coco_results.build_coco_results_crops(7, np.zeros((0, 4)), [], [], [], (H, W)) == []
 
 
+@pytest.mark.parametrize("roi_dtype", [np.int32, np.float32])
+def test_build_coco_results_crops_at_the_eval_cells_scale(roi_dtype):
+    """One 480x640 image with 100 detections of 30-100 px boxes, each crop a
+    28x28 noise mask resized by the unmold's PIL path, as the evaluation
+    benchmark's images have them after the unmold: the dicts of the one
+    native call equal the JAX package's per-detection encode and the
+    full-frame builders', byte for byte. Float boxes with fractions take
+    the bbox rounding too."""
+    from sln_amodal_tpu_torch.utils.image import unmold_crop
+
+    rng = np.random.RandomState(11)
+    fh, fw, n = 480, 640, 100
+    hw = rng.randint(30, 101, (n, 2))
+    y1, x1 = rng.randint(0, fh - hw[:, 0] + 1), rng.randint(0, fw - hw[:, 1] + 1)
+    boxes = np.stack([y1, x1, y1 + hw[:, 0], x1 + hw[:, 1]], 1)
+    crops = [unmold_crop(rng.rand(28, 28).astype(np.float32), b) for b in boxes]
+    rois = boxes.astype(roi_dtype)
+    if roi_dtype == np.float32:
+        rois = rois + rng.uniform(0, 0.9, rois.shape).astype(np.float32)
+    class_ids = rng.randint(0, 3, n).astype(np.int32)
+    scores = rng.rand(n).astype(np.float32)
+    full = np.zeros((fh, fw, n), np.uint8)
+    for i, (a, b, c, d) in enumerate(boxes):
+        full[a:c, b:d, i] = crops[i]
+    out = coco_results.build_coco_results_crops(3, rois, class_ids, scores, crops, (fh, fw, 3))
+    assert len(out) == n and {r["category_id"] for r in out} == {0, 1}
+    assert out == jax_results.build_coco_results_crops(3, rois, class_ids, scores, crops,
+                                                       (fh, fw, 3))
+    assert out == coco_results.build_coco_results(3, rois, class_ids, scores, full)
+    assert out == jax_results.build_coco_results(3, rois, class_ids, scores, full)
+
+
 @pytest.mark.parametrize("area", ["all", "small", "medium", "large", "96-128"])
 @pytest.mark.parametrize("limit", [None, 3])
 def test_evaluate_recall_equal_jax(area, limit):

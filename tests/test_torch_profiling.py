@@ -337,6 +337,20 @@ def test_predict_records_one_encode_per_image_under_its_drain(detector, dataset)
     assert all(s.parent is None and s.request is None for s in loads)
 
 
+def test_predict_encode_counts_the_characters_of_its_rle_strings(detector, dataset):
+    """Each image's ``predict.encode`` span counts its RLE strings'
+    characters (``rle_bytes``) beside its detections."""
+    ids = [0, 1, 2]
+    results = port_train.predict(detector, dataset, ids, 2, progress=False)
+    encodes = sorted(by_name(profiling.spans(), "predict.encode"), key=lambda s: s.start_ns)
+    assert len(encodes) == len(ids)
+    for image_id, encode in zip(ids, encodes):
+        own = [r for r in results if r["image_id"] == dataset.image_info[image_id]["id"]]
+        assert encode.counts["detections"] == len(own) > 0
+        assert encode.counts["rle_bytes"] == sum(len(r["segmentation"]["counts"]) for r in own)
+    assert len({dataset.image_info[i]["id"] for i in ids}) == len(ids)
+
+
 def test_outputs_identical_with_recording_on_and_off(detector, dataset):
     images = [dataset.load_image(i) for i in range(2)]
     ids = [0, 1, 2]

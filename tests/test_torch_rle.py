@@ -143,16 +143,23 @@ def test_frpyobjects_boxes_and_uncompressed():
     np.testing.assert_array_equal(rle.decode(out), m)
 
 
-@pytest.mark.parametrize("where", ["origin", "bottom_right", "full", "one_pixel",
-                                   "empty_crop", "top_edge", "left_edge"])
+# (y1, x1, h, w) in a 48x36 frame
+EDGES = {"origin": (0, 0, 11, 7), "bottom_right": (37, 29, 11, 7), "full": (0, 0, 48, 36),
+         "one_pixel": (47, 35, 1, 1), "empty_crop": (10, 10, 6, 5), "top_edge": (0, 12, 9, 13),
+         "left_edge": (20, 0, 28, 4)}
+
+
+def edge_crop(where):
+    _, _, h, w = EDGES[where]
+    rng = np.random.RandomState(len(where))
+    return (rng.rand(h, w) < (0.0 if where == "empty_crop" else 0.6)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("where", list(EDGES))
 def test_encode_pasted_at_the_edges(where):
     H, W = 48, 36
-    rng = np.random.RandomState(len(where))
-    y1, x1, h, w = {"origin": (0, 0, 11, 7), "bottom_right": (37, 29, 11, 7),
-                    "full": (0, 0, H, W), "one_pixel": (47, 35, 1, 1),
-                    "empty_crop": (10, 10, 6, 5), "top_edge": (0, 12, 9, 13),
-                    "left_edge": (20, 0, 28, 4)}[where]
-    crop = (rng.rand(h, w) < (0.0 if where == "empty_crop" else 0.6)).astype(np.uint8)
+    y1, x1, _, _ = EDGES[where]
+    crop = edge_crop(where)
     counts = rle.encode_pasted_counts(crop, y1, x1, H, W)
     np.testing.assert_array_equal(counts, rle.encode_pasted_counts_plain(crop, y1, x1, H, W))
     np.testing.assert_array_equal(counts, jax_rle.encode_pasted_counts(crop, y1, x1, H, W))
@@ -164,6 +171,58 @@ def test_encode_pasted_outside_the_frame_raises():
         rle.encode_pasted(np.ones((5, 5), np.uint8), 44, 0, 48, 36)
     with pytest.raises(ValueError, match="outside"):
         rle.encode_pasted(np.ones((5, 5), np.uint8), 0, -1, 48, 36)
+
+
+def many_case(case):
+    """(crops, y1s, x1s) in a 48x36 frame for one call of ``encode_pasted_many``."""
+    H, W = 48, 36
+    rng = np.random.RandomState(len(case))
+    if case == "none":
+        return [], [], []
+    if case == "edges":                    # test_encode_pasted_at_the_edges, in one call
+        return ([edge_crop(k) for k in EDGES], [EDGES[k][0] for k in EDGES],
+                [EDGES[k][1] for k in EDGES])
+    if case == "ragged":                   # mixed sizes, a 1x1 and the full frame among them
+        sizes = [(1, 1), (H, W), (3, 30), (40, 2), (17, 17), (1, W), (H, 1), (9, 5)]
+        crops = [(rng.rand(h, w) < 0.5).astype(np.uint8) for h, w in sizes]
+        y1s = [rng.randint(0, H - h + 1) for h, _ in sizes]
+        x1s = [rng.randint(0, W - w + 1) for _, w in sizes]
+        return crops, y1s, x1s
+    if case == "zeros_and_ones":
+        return [np.zeros((12, 9), np.uint8), np.ones((12, 9), np.uint8),
+                np.ones((H, W), np.uint8)], [5, 30, 0], [20, 0, 0]
+    assert case == "bool_and_sliced"
+    base = rng.rand(40, 50) < 0.4
+    sliced = base.astype(np.uint8)[3:33:2, 40:4:-3]        # non-contiguous, negative stride
+    assert not sliced.flags.c_contiguous
+    return [base[:20, :25], sliced, base[::3, ::4]], [1, 30, 0], [2, 20, 23]
+
+
+@pytest.mark.parametrize("case", ["edges", "ragged", "zeros_and_ones", "bool_and_sliced", "none"])
+def test_encode_pasted_many_equals_one_by_one(case):
+    H, W = 48, 36
+    crops, y1s, x1s = many_case(case)
+    out = rle.encode_pasted_many(crops, y1s, x1s, H, W)
+    assert isinstance(out, list) and len(out) == len(crops)
+    for s, crop, y1, x1 in zip(out, crops, y1s, x1s):
+        assert isinstance(s, bytes)
+        assert s == rle.counts_to_string_plain(rle.encode_pasted_counts_plain(crop, y1, x1, H, W))
+        assert s == jax_rle.encode_pasted(crop, y1, x1, H, W)["counts"]
+        assert s == rle.encode_pasted(crop, y1, x1, H, W)["counts"]
+
+
+@pytest.mark.parametrize("where", [0, 3, 5])
+@pytest.mark.parametrize("side", ["top", "left", "bottom", "right"])
+def test_encode_pasted_many_outside_the_frame_raises(where, side, monkeypatch):
+    """One crop past any edge, anywhere in the list: ValueError before the
+    native library is called."""
+    monkeypatch.setattr(rle, "load_library", lambda: pytest.fail("called before the check"))
+    crops = [np.ones((5, 4), np.uint8)] * 6
+    y1s, x1s = [0, 10, 20, 30, 43, 7], [0, 5, 10, 15, 32, 20]
+    y1s[where], x1s[where] = {"top": (-1, 3), "left": (3, -2), "bottom": (44, 3),
+                              "right": (3, 33)}[side]
+    with pytest.raises(ValueError, match="outside"):
+        rle.encode_pasted_many(crops, y1s, x1s, 48, 36)
 
 
 def test_library_is_built_under_build_native_by_hash():
