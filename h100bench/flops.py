@@ -3,12 +3,13 @@
 
 :func:`inference_flops` counts every convolution and matrix product that
 the published network needs for one image at a configuration's shapes
-(two operations per multiply-add): the ResNet-FPN trunk, the RPN head over
-all five levels, the classifier over the proposals, DeepLabV2 at its three
-scales with the ASPP's four dilated branches, and the mask head over the
-detections. Resizes, softmaxes, NMS and RoIAlign are not products and are
-not counted. The count is the same whatever implements the work (a cuDNN
-convolution or the same product as one matmul).
+(two operations per multiply-add): the trunk and FPN (counted by the
+configuration's trunk file, ``reference/trunks/<backbone>.py``), the RPN
+head over all five levels, the classifier over the proposals, DeepLabV2 at
+its three scales with the ASPP's four dilated branches, and the mask head
+over the detections. Resizes, softmaxes, NMS and RoIAlign are not products
+and are not counted. The count is the same whatever implements the work (a
+cuDNN convolution or the same product as one matmul).
 
 The kernel bounds follow ``chip_smoke.py``'s counts: the least time is the
 larger of the bytes the inputs and outputs need at the HBM rate and the
@@ -20,12 +21,13 @@ from __future__ import annotations
 import math
 from typing import Dict, NamedTuple, Tuple
 
+from .reference import trunks
+
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores: lerps, IoUs
 HBM_BYTES_PER_S = 3.35e12
 IOU_FLOPS = 15                  # one +1 IoU and its compare
-RESNET_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 
 
 def conv_out(n: int, k: int, s: int = 1, p: int = 0, d: int = 1) -> int:
@@ -67,30 +69,12 @@ def bottleneck_stage(n: int, cin: int, planes: int, blocks: int, stride: int, pa
     return layers, out
 
 
-def trunk_fpn_layers(cfg: Dict, trained_stages=()) -> Tuple[list, list]:
-    """(layers, level sizes P2..P6) of ResNet-FPN at cfg's image size;
-    ``trained_stages`` names the ResNet stages (2..5) whose weights train."""
-    n = conv_out(cfg["image_size"], 7, 2, 3)
-    layers = [Layer(conv_flops(n, n, 3, 64, 7), "trunk_fpn")]
-    n = math.ceil(n / 2)                                       # SAME max pool
-    blocks = RESNET_BLOCKS[cfg["backbone"]]
-    sizes, cin, grad = [], 64, False
-    for k, (planes, count, stride) in enumerate(zip((64, 128, 256, 512), blocks,
-                                                   (1, 2, 2, 2)), start=2):
-        train = k in trained_stages
-        stage_layers, n = bottleneck_stage(n, cin, planes, count, stride, "trunk_fpn",
-                                           train, grad)
-        layers += stage_layers
-        grad = grad or train
-        sizes.append((n, planes * 4, grad))
-        cin = planes * 4
-    c = cfg["fpn_channels"]
-    fpn = bool(trained_stages)
-    for n, ch, grad in sizes:
-        layers += [Layer(conv_flops(n, n, ch, c, 1), "trunk_fpn", fpn, grad),
-                   Layer(conv_flops(n, n, c, c, 3), "trunk_fpn", fpn, fpn)]
-    levels = [n for n, _, _ in sizes] + [math.ceil(sizes[-1][0] / 2)]
-    return layers, levels
+def trunk_fpn_layers(cfg: Dict, trained_levels=()) -> Tuple[list, list]:
+    """(layers, level sizes P2..P6) of the trunk and FPN at cfg's image
+    size, from the trunk file of cfg's ``backbone``
+    (``reference/trunks/<backbone>.py``); ``trained_levels`` names the
+    pyramid levels (2..5) whose trunk weights train."""
+    return trunks.load(cfg["backbone"]).flop_layers(cfg, trained_levels)
 
 
 def head_layers(cfg: Dict, levels, rois: int, boxes: int, trained: bool) -> list:
@@ -158,7 +142,7 @@ def training_flops(cfg: Dict) -> Dict[str, float]:
     gradient, and the input gradient of every layer the gradient passes
     through on its way to a trained weight (each as many FLOPs as the
     layer's forward). ``backward`` holds the two gradients' sum."""
-    trunk, levels = trunk_fpn_layers(cfg, trained_stages=(4, 5))
+    trunk, levels = trunk_fpn_layers(cfg, trained_levels=(4, 5))
     t = cfg["train_rois_per_image"]
     layers = trunk + head_layers(cfg, levels, t, t, True)
     parts = by_part(layers, glm_flops(cfg))

@@ -1,10 +1,11 @@
 """SLN-Amodal's inference graph in plain PyTorch, float32: the benchmark's
 reference.
 
-A frozen copy of the published network (Mask R-CNN ResNet-FPN, the
-DeepLabV2-ResNet101-MSC prior, the 439-channel layer-mask head) written
-for clarity, not speed: NHWC tensors, plain convolutions, greedy NMS as a
-loop, RoIAlign as a gather. It imports nothing of the program under test,
+A frozen copy of the published network (Mask R-CNN with the trunk and FPN
+of the configuration's ``trunks/<backbone>.py``, the DeepLabV2-ResNet101-MSC
+prior, the 439-channel layer-mask head) written for clarity, not speed:
+NHWC tensors, plain convolutions, greedy NMS as a loop, RoIAlign as a
+gather. It imports nothing of the program under test,
 and takes its weights as a state_dict in the reference ``.pth`` layout,
 the same one the benchmark hands the program.
 
@@ -29,10 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import lowp
+from . import lowp, trunks
 
 F32 = torch.float32
-RESNET_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 LOG_DELTA_CLIP = 10.0
 
 
@@ -100,65 +100,6 @@ def resize(x, size):
                              align_corners=False)[:, 0]
     return nhwc(F.interpolate(nchw(x), size=tuple(size), mode="bilinear",
                               align_corners=False))
-
-
-# ---------------------------------------------------------------- trunk --
-
-class Bottleneck(nn.Module):
-    """Matterport's bottleneck: the stride on the 1x1 conv; BN eps 1e-3."""
-
-    def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False):
-        super().__init__()
-        self.conv1 = Conv2d(cin, planes, 1, stride=stride)
-        self.bn1 = FrozenBN(planes)
-        self.conv2 = Conv2d(planes, planes, 3, padding=1)
-        self.bn2 = FrozenBN(planes)
-        self.conv3 = Conv2d(planes, planes * 4, 1)
-        self.bn3 = FrozenBN(planes * 4)
-        self.downsample = (nn.Sequential(Conv2d(cin, planes * 4, 1, stride=stride),
-                                         FrozenBN(planes * 4)) if downsample else None)
-
-    def forward(self, x):
-        res = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        return F.relu(self.bn3(self.conv3(y)) + res)
-
-
-def stage(cin, planes, blocks, stride):
-    return nn.Sequential(Bottleneck(cin, planes, stride, True),
-                         *[Bottleneck(planes * 4, planes) for _ in range(1, blocks)])
-
-
-class ResNetFPN(nn.Module):
-    def __init__(self, architecture: str, out: int = 256):
-        super().__init__()
-        blocks = RESNET_BLOCKS[architecture]
-        self.C1 = nn.Sequential(Conv2d(3, 64, 7, stride=2, padding=3), FrozenBN(64))
-        self.C2 = stage(64, 64, blocks[0], 1)
-        self.C3 = stage(256, 128, blocks[1], 2)
-        self.C4 = stage(512, 256, blocks[2], 2)
-        self.C5 = stage(1024, 512, blocks[3], 2)
-        for lvl, cin in ((2, 256), (3, 512), (4, 1024), (5, 2048)):
-            setattr(self, f"P{lvl}_conv1", Conv2d(cin, out, 1))
-            setattr(self, f"P{lvl}_conv2", nn.Sequential(nn.Identity(),
-                                                         Conv2d(out, out, 3, padding=1)))
-
-    def forward(self, x):
-        y = F.relu(self.C1(nchw(x)))
-        y = F.max_pool2d(pad_same(y, 3, 2, -math.inf), 3, 2)
-        c2 = self.C2(y)
-        c3 = self.C3(c2)
-        c4 = self.C4(c3)
-        c5 = self.C5(c4)
-        up = lambda t: F.interpolate(t, scale_factor=2, mode="nearest")  # noqa: E731
-        p5 = self.P5_conv1(c5)
-        p4 = self.P4_conv1(c4) + up(p5)
-        p3 = self.P3_conv1(c3) + up(p4)
-        p2 = self.P2_conv1(c2) + up(p3)
-        outs = [self.P2_conv2(p2), self.P3_conv2(p3), self.P4_conv2(p4), self.P5_conv2(p5)]
-        outs.append(outs[-1][:, :, ::2, ::2])
-        return [nhwc(p) for p in outs]
 
 
 # ---------------------------------------------------------------- heads --
@@ -462,12 +403,15 @@ class Candidates(NamedTuple):
 
 
 class Reference(nn.Module):
-    """The network of one configuration (a dict of the ``Config`` fields)."""
+    """The network of one configuration (a dict of the ``Config`` fields).
+    ``trunk`` is the trunk file of the configuration's ``backbone``
+    (``trunks/<backbone>.py``), whose network is ``fpn``."""
 
     def __init__(self, cfg: Dict):
         super().__init__()
         self.cfg = cfg
-        self.fpn = ResNetFPN(cfg["backbone"], cfg["fpn_channels"])
+        self.trunk = trunks.load(cfg["backbone"])
+        self.fpn = self.trunk.network(cfg)
         self.rpn = RPNHead(cfg["fpn_channels"], len(cfg["rpn_anchor_ratios"]))
         self.classifier = ClassifierHead(cfg["num_classes"], cfg["pool_size"],
                                          cfg["fpn_channels"])

@@ -22,14 +22,16 @@ import torch
 
 from .model import F32, Reference, crop_and_resize, roi_align
 
-STAGE_PATTERNS = {
-    "heads": r"^(rpn\.|classifier\.|mask\.|fpn\.P[2-5]_conv[12]\.)",
-    "4+": r"^(rpn\.|classifier\.|mask\.|fpn\.P[2-5]_conv[12]\.|fpn\.C4\.|fpn\.C5\.)",
-}
+HEADS = r"rpn\.|classifier\.|mask\.|fpn\.P[2-5]_conv[12]\."
+STAGE_LEVELS = {"heads": (), "4+": (4, 5)}     # the pyramid levels whose trunk trains
 
 
 def trained(ref: Reference, stage: str) -> List[Tuple[str, torch.nn.Parameter]]:
-    pattern = re.compile(STAGE_PATTERNS[stage])
+    """The parameters a stage trains: the heads, the FPN's convs, and the
+    trunk's of the stage's levels (its file's ``trained_pattern``)."""
+    levels = STAGE_LEVELS[stage]
+    trunk = [rf"fpn\.(?:{ref.trunk.trained_pattern(levels)})"] if levels else []
+    pattern = re.compile("^(" + "|".join([HEADS] + trunk) + ")")
     return [(n, p) for n, p in ref.named_parameters() if pattern.match(n)]
 
 

@@ -32,6 +32,8 @@ def test_a_run_loads_no_jax(cell):
 
 def test_readers_and_reference_load_nothing_of_the_program():
     top = loaded("from h100bench import harness\n"
-                 "from h100bench.reference import model, host, lowp\n"
-                 "for m in harness.spec()['per_layer']: harness.reader(m['name'])")
+                 "from h100bench.reference import model, host, lowp, trunks\n"
+                 "for m in harness.spec()['per_layer']: harness.reader(m['name'])\n"
+                 "assert trunks.names()\n"
+                 "for t in trunks.names(): trunks.load(t).network({'fpn_channels': 8})")
     assert not top & (FORBIDDEN | {"sln_amodal_tpu_torch"})

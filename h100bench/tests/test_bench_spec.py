@@ -7,6 +7,7 @@ import re
 import pytest
 
 from h100bench import harness
+from h100bench.reference import trunks
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -48,6 +49,7 @@ def test_cell_resolves_every_file(cell):
     cfg = harness.config_file(w["config"])
     assert cfg["reduced"] == [] and cfg["source"]
     harness.port_config(cfg)
+    trunks.load(cfg["backbone"])       # the trunk file, with all it provides
     traffic = harness.traffic_file(w["traffic"])
     assert hasattr(harness.driver(traffic["kind"]), "Cell")
     limits = harness.limits_file(cell)

@@ -11,7 +11,7 @@ CFG = dict(image_size=64, pre_nms_limit=300, post_nms_rois_inference=40,
 TRAFFIC = dict(pool=4, sizes=[[48, 64], [64, 48]], samples=2)
 PER_KIND = {"eval": dict(ids_per_call=16), "detect": dict(sample_within=3),
             "train": dict(batch=2, warm_steps=4, stretch_steps=2)}
-CELLS = ("sln_r101.eval-b8", "sln_r50.detect-b1")
+CELLS = ("sln_r101.eval-b8", "sln_r50.detect-b1", "sln_r101.detect-b1")
 
 # The training cell's entries: its driver runs, but BENCHMARK.json does not
 # list it yet (PERF.md §7: its numbers do not yet tell the float8 control

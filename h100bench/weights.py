@@ -2,6 +2,9 @@
 reference ``.pth`` layout, float32 (the parameter dtype both configurations
 state).
 
+The trunk's part of the recipe comes from its file,
+``reference/trunks/<backbone>.py``; the rest is the same for every trunk.
+
 A seeded network of random weights detects nothing useful and, under
 identity frozen batch norm, grows its activations some 500-fold through
 the trunk, where every box's features become nearly alike: then rounding
@@ -10,10 +13,11 @@ applies a recipe (after ``utils/synthetic.py::detection_biased_variables``
 of the program, which it extends) and sets statistics and scales from one
 calibration pass of the reference over the first image of the cell:
 
-- every frozen batch norm (trunk, GLM, classifier, mask head) takes the
-  per-channel mean and mean square of its input in that pass
-  (:func:`standardizing`), and the last batch norm of each residual
-  branch (the trunk's and the GLM's bottlenecks) the scale
+- every frozen batch norm of the GLM, the classifier and the mask head,
+  and those the trunk file names (``calibrated``), takes the per-channel
+  mean and mean square of its input in that pass (:func:`standardizing`),
+  and the weights that scale each residual branch (the trunk file's
+  ``branches``, the last batch norm of the GLM's bottlenecks) the factor
   ``BRANCH_GAIN``, as a trained residual network's branches are small
   beside their shortcut: a random network with full-scale branches is
   chaotic, and rounding in its first layers would grow until the boxes
@@ -55,15 +59,18 @@ CLASS_MARGIN, CLASS_SPREAD = 3.0, 1.5
 DELTA_MEAN = (30.0, 0.0, 5.0, 5.0)      # (dy, dx, log dh, log dw), before the std devs
 DELTA_SPREAD = (20.0, 20.0, 1.5, 1.5)
 MASK_SPREAD = 2.0
+TRUNK = "fpn."                          # the trunk file's network in the state_dict
 
 
-def seeded(model: torch.nn.Module, seed: int, device) -> Dict[str, torch.Tensor]:
-    """A state_dict of ``model``'s layout: conv, transposed-conv and linear
+def seeded(ref: Reference, seed: int, device) -> Dict[str, torch.Tensor]:
+    """A state_dict of ``ref``'s layout: conv, transposed-conv and linear
     weights normal with variance 1/fan_in, biases zero, frozen BN the
-    identity. All weights come from one draw of a generator on ``device``."""
+    identity, and what else the trunk starts otherwise (its file's
+    ``start``). All weights come from one draw of a generator on
+    ``device``; a trunk's further draws follow it."""
     sd = {k: torch.zeros(v.shape, dtype=torch.float32, device=device)
-          for k, v in model.state_dict().items()}
-    layers = [(name, mod) for name, mod in model.named_modules()
+          for k, v in ref.state_dict().items()}
+    layers = [(name, mod) for name, mod in ref.named_modules()
               if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear))]
     sizes = [mod.weight.numel() for _, mod in layers]
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -73,16 +80,35 @@ def seeded(model: torch.nn.Module, seed: int, device) -> Dict[str, torch.Tensor]
         fan_in = (shape[0] if isinstance(mod, torch.nn.ConvTranspose2d) else shape[1]) \
             * math.prod(shape[2:])
         sd[f"{name}.weight"] = part.reshape(shape) / math.sqrt(fan_in)
-    for name, mod in model.named_modules():
+    for name, mod in ref.named_modules():
         if isinstance(mod, FrozenBN):
             sd[f"{name}.weight"].fill_(1.0)
             sd[f"{name}.running_var"].fill_(1.0)
+    trunk = {k[len(TRUNK):]: v for k, v in sd.items() if k.startswith(TRUNK)}
+    ref.trunk.start(ref.fpn, trunk, gen)
+    sd.update((TRUNK + k, v) for k, v in trunk.items())
     return sd
 
 
+def gain_branches(ref: Reference, sd: Dict[str, torch.Tensor]) -> None:
+    """Scale each residual branch by ``BRANCH_GAIN``: the trunk's (its
+    file's ``branches``), each GLM bottleneck's last batch norm and the
+    mask head's third batch norm (which a suffix rule meant for the trunk
+    has always reached; kept so that the weights stay as they were)."""
+    for key in ref.trunk.branches(ref.fpn):
+        sd[TRUNK + key].mul_(BRANCH_GAIN)
+    for name in sd:
+        if name.endswith(".increase.bn.weight") or name == "mask.bn3.weight":
+            sd[name].fill_(BRANCH_GAIN)
+
+
+def frozen_bns(module: torch.nn.Module):
+    return [m for m in module.modules() if isinstance(m, FrozenBN)]
+
+
 @contextlib.contextmanager
-def standardizing(module: torch.nn.Module):
-    """While open, each frozen batch norm of ``module`` takes, at its first
+def standardizing(modules):
+    """While open, each frozen batch norm of ``modules`` takes, at its first
     call, its input's per-channel mean as its mean and the per-channel mean
     square as its variance: the layers that follow see centred channels at
     most of unit scale (the role a trained network's statistics play), so
@@ -99,8 +125,7 @@ def standardizing(module: torch.nn.Module):
         mod.running_var.copy_(x.pow(2).mean((0, 2, 3)))
         done.add(mod)
 
-    handles = [m.register_forward_pre_hook(hook) for m in module.modules()
-               if isinstance(m, FrozenBN)]
+    handles = [m.register_forward_pre_hook(hook) for m in modules]
     try:
         yield
     finally:
@@ -129,14 +154,12 @@ def inference_weights(cfg: Dict, seed: int, image_u8: torch.Tensor,
         sd[f"{key}.weight"].zero_()
         sd[f"{key}.bias"].zero_()
     sd["rpn.conv_class.bias"][1::2] = 1.0
-    for name in sd:
-        if name.endswith((".bn3.weight", ".increase.bn.weight")):
-            sd[name].fill_(BRANCH_GAIN)
+    gain_branches(ref, sd)
     ref.load_state_dict(sd)
     x = ref.molded(image_u8)
-    with standardizing(ref.fpn):
+    with standardizing(ref.trunk.calibrated(ref.fpn)):
         feats = ref.fpn(x)
-    with standardizing(ref.GLM_modual):
+    with standardizing(frozen_bns(ref.GLM_modual)):
         ref.prior(x)
     rms = max(float(p.pow(2).mean().sqrt()) for p in feats[:4])
     for level in range(2, 6):
@@ -146,7 +169,7 @@ def inference_weights(cfg: Dict, seed: int, image_u8: torch.Tensor,
     feats = [p / rms for p in feats]
     rois, _ = ref.proposals(*ref.rpn_outputs(feats)[1:])
     crops = roi_align(feats[:4], rois, cfg["pool_size"], cfg["image_size"])
-    with standardizing(ref.classifier):
+    with standardizing(frozen_bns(ref.classifier)):
         hidden = ref.classifier.features(crops)
     sd = {k: v.clone() for k, v in ref.state_dict().items()}
     w, b = sd["classifier.linear_class.weight"], sd["classifier.linear_class.bias"]
@@ -164,7 +187,7 @@ def inference_weights(cfg: Dict, seed: int, image_u8: torch.Tensor,
     fpn = roi_align(levels, norm, cfg["mask_pool_size"], cfg["image_size"])
     zero = torch.zeros(boxes.shape[0], dtype=torch.long, device=boxes.device)
     glm = crop_and_resize(prior, boxes, zero, cfg["mask_pool_size"])
-    with standardizing(ref.mask):
+    with standardizing(frozen_bns(ref.mask)):
         hidden = ref.mask.features(fpn, glm)
     for name, v in ref.mask.state_dict().items():
         if "bn" in name:
@@ -195,14 +218,12 @@ def training_weights(cfg: Dict, seed: int, image_u8: torch.Tensor,
     sd["rpn.conv_bbox.weight"] *= 1e-3
     for key in ("classifier.linear_class", "classifier.linear_bbox"):
         sd[f"{key}.weight"] *= 0.01
-    for name in sd:
-        if name.endswith((".bn3.weight", ".increase.bn.weight")):
-            sd[name].fill_(BRANCH_GAIN)
+    gain_branches(ref, sd)
     ref.load_state_dict(sd)
     x = ref.molded(image_u8)
-    with standardizing(ref.fpn):
+    with standardizing(ref.trunk.calibrated(ref.fpn)):
         feats = ref.fpn(x)
-    with standardizing(ref.GLM_modual):
+    with standardizing(frozen_bns(ref.GLM_modual)):
         prior = ref.prior(x)
     rms = max(float(p.pow(2).mean().sqrt()) for p in feats[:4])
     for level in range(2, 6):
@@ -212,11 +233,11 @@ def training_weights(cfg: Dict, seed: int, image_u8: torch.Tensor,
     feats = [p / rms for p in feats]
     rois, _ = ref.proposals(*ref.rpn_outputs(feats)[1:], cfg["post_nms_rois_training"])
     rois = rois[:cfg["train_rois_per_image"]]
-    with standardizing(ref.classifier):
+    with standardizing(frozen_bns(ref.classifier)):
         ref.classifier.features(roi_align(feats[:4], rois, cfg["pool_size"], cfg["image_size"]))
     m = cfg["mask_pool_size"]
     zero = torch.zeros(rois.shape[0], dtype=torch.long, device=rois.device)
-    with standardizing(ref.mask):
+    with standardizing(frozen_bns(ref.mask)):
         ref.mask.features(roi_align(feats[:4], rois, m, cfg["image_size"]),
                           crop_and_resize(prior, rois, zero, m))
     return {k: v.clone() for k, v in ref.state_dict().items()}
