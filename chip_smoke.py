@@ -2,6 +2,7 @@
 """Drives the PyTorch port on one NVIDIA GPU and checks it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py window_attention   # phases 1, 2, 3's window attention and 4b
 
 Phases (each prints one JSON line):
 
@@ -35,7 +36,13 @@ Phases (each prints one JSON line):
    serial work the layout asks: the most (ROI, row sample) entries on one
    output row and the most ROIs covering one cell. The "sampled" layout
    again at batch 8 (phase 15's step), in float32 and bfloat16, with the
-   same tolerances and bit-equal repeats, and the workspace's bytes.
+   same tolerances and bit-equal repeats, and the workspace's bytes. The
+   Swin window-attention kernel at Swin-S's four stage shapes (padded
+   grids 259, 133, 70 and 35 with 3, 6, 12 and 24 heads), unshifted and
+   shifted by 3, in float32 and bfloat16, against the op's plain path on
+   the card: within 8 float32 units or one bfloat16 unit of the largest
+   output, two launches bit-equal, one launch a call; times per shape
+   and per image (24 calls).
 4. main path — ``Detector.detect`` on seeded 1024² images at the full
    width of the one supported model (ResNet-101-FPN, DeepLabV2-MSC GLM at
    513², 6000 -> 1000 proposals, 100 detections), random seeded weights,
@@ -56,6 +63,14 @@ Phases (each prints one JSON line):
    2, for bfloat16, the share of float32's top-100 boxes it also keeps at
    IoU >= 0.9 and the largest raw mask difference on them (printed, not
    asserted).
+4b. swin_detect — ``Detector.detect`` on ``Config(backbone="swin_s")``
+   (Swin-S at full width and depth, 1024², batch 1, bfloat16): graphed
+   against eager bit for bit (the first call and two replays on other
+   images); with the window-attention counter at 0 just before, 48
+   launches for the warm-up and capture, 24 per eager forward, none from
+   the host per replay, and by kernel name on the device 24 per replay
+   (NMS 1, RoIAlign 2, backward 0 beside); the kernel's device ms in a
+   replay.
 5. reference — the whole slice at a small size in float64 on the card
    (kernels) against the CPU (plain versions): equal boxes and classes;
    then the evaluate path (``cli.train``) at 128² with the detection-biased
@@ -599,6 +614,92 @@ def check_roi_align_backward(dev, b, dtype=torch.float32, layouts=BACKWARD_LAYOU
     return dict(summaries["sampled"], layouts=summaries)
 
 
+# Swin-S's four stages at the 1024-square frame: the padded token grid, the
+# heads and the blocks (half of them unshifted, half shifted by 3)
+SWIN_S_STAGES = ((259, 3, 2), (133, 6, 2), (70, 12, 18), (35, 24, 2))
+WINDOW_KERNEL = "swin_window_attention_kernel"
+# the window-attention kernel against the op's plain path on the card, in
+# units of the dtype at the largest output (``finfo.eps`` times its power
+# of two): float32, both sum 32-term dot products and a 49-term softmax in
+# float32 in other orders (the plain path alone lies 4-6 units from its
+# float64 result at these shapes, on the CPU); bfloat16, both compute in
+# float32 from the same bfloat16 inputs and round once at the output, so
+# an element may round to the neighbouring value
+WINDOW_UNITS = {torch.float32: 8, torch.bfloat16: 1}
+
+
+def units_of(err: float, largest: float, dtype) -> float:
+    return err / (torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(largest)))
+
+
+def check_window_attention(dev, dtype=torch.float32):
+    """The window-attention kernel's ``dtype`` instantiation, through its
+    wrapper and custom op, against the op's plain path on the card at
+    Swin-S's four stage shapes (batch 1), unshifted and shifted: within
+    ``WINDOW_UNITS``; a repeat launch bit-equal; one launch of one kernel a
+    call. Besides each shape's times, one image's: each shape's times the
+    blocks that run it (24 calls)."""
+    from sln_amodal_tpu_torch.ops.window_attention import window_attention_plain
+    from sln_amodal_tpu_torch.ops.window_attention_cuda import window_attention
+
+    elem = torch.tensor([], dtype=dtype).element_size()
+    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, host_us=0.0,
+                 max_abs_err=0.0, max_err_units=0.0, bound_bytes=0.0, bound_flops=0.0)
+    for grid, heads, depth in SWIN_S_STAGES:
+        for shift in (0, 3):
+            gen = torch.Generator().manual_seed(grid * 10 + shift)
+            qkv = torch.randn((1, grid, grid, 3 * heads * 32), generator=gen).to(dev, dtype)
+            table = (0.5 * torch.randn((169, heads), generator=gen)).to(dev)
+            args = (qkv, table, heads, 7, shift)
+            got, again = window_attention(*args), window_attention(*args)
+            want = window_attention_plain(*args)
+            exact = window_attention_plain(qkv.double(), table.double(), heads, 7, shift)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or not torch.equal(got, again):
+                raise AssertionError(f"window attention {grid} shift {shift} {dtype}: "
+                                     "two launches differ")
+            largest = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            units = units_of(err, largest, dtype)
+            if units > WINDOW_UNITS[dtype]:
+                raise AssertionError(f"window attention {grid} shift {shift} {dtype}: "
+                                     f"{units} units from the plain path")
+            by_kernel = device_kernels(lambda: window_attention(*args), 10,
+                                       expect=(WINDOW_KERNEL,))
+            if [(WINDOW_KERNEL in name, n) for name, (_, n) in by_kernel.items()] != [(True, 1)]:
+                raise AssertionError(f"window attention wrapper launches {by_kernel}")
+            tokens = grid * grid
+            # qkv read and the output written once, the bias table
+            nbytes = 4 * qkv.numel() // 3 * elem + table.numel() * 4
+            flops = tokens * heads * 4.0 * 49 * 32           # QK^T and PV
+            bound_ms, bound_by = bound(nbytes, flops)
+            shape = dict(dtype=str(dtype), grid=grid, heads=heads, shift=shift,
+                         max_abs_err=err, max_err_units=units,
+                         plain_units_from_float64=units_of(
+                             float((want.double() - exact).abs().max()), largest, dtype),
+                         kernel_units_from_float64=units_of(
+                             float((got.double() - exact).abs().max()), largest, dtype),
+                         ms=cuda_ms(lambda: window_attention(*args), 20),
+                         device_ms=sum(t for t, _ in by_kernel.values()),
+                         host_us=host_us(lambda: window_attention(*args), 30),
+                         plain_ms=cuda_ms(lambda: window_attention_plain(*args), 3),
+                         bound_ms=bound_ms, bound_by=bound_by)
+            emit({"phase": "kernel", "name": "window_attention", "batch": 1, **shape})
+            calls = depth // 2
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "host_us"):
+                total[k] += calls * shape[k]
+            total["bound_bytes"] += calls * nbytes
+            total["bound_flops"] += calls * flops
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+            total["max_err_units"] = max(total["max_err_units"], units)
+            del qkv, got, again, want, exact
+    total["bound_by"] = ("bytes" if total["bound_bytes"] / HBM_BYTES_PER_S
+                         >= total["bound_flops"] / F32_FLOPS else "operations")
+    emit({"phase": "kernel", "name": "window_attention", "batch": 1, "dtype": str(dtype),
+          "per_image": "24 calls, Swin-S at 1024 square", **total})
+    return total
+
+
 # the csrc kernel whose launches count each op call, by its name in a
 # torch.profiler trace: a replayed graph launches the captured kernels
 # without calling the wrappers, whose counters then count only the
@@ -812,6 +913,83 @@ def main_paths(dev):
           "graph_reserved_bytes": {k: p["graph_reserved_bytes"] for k, p in paths.items()},
           "eager_peak_mem_bytes": {k: p["eager_peak_mem_bytes"] for k, p in paths.items()}})
     return paths
+
+
+def swin_detect(dev, dtype="bfloat16"):
+    """Phase 4b: ``Detector.detect`` on ``Config(backbone="swin_s")`` at
+    the full width and depth (1024², batch 1, ``dtype`` compute, float32
+    parameters), graphed, against the eager model, with the
+    window-attention counter set to 0 just before it: the first dispatch
+    warms up and captures (24 launches each, one per block), an eager
+    forward launches 24, a replay none from the host; by kernel name on
+    the device a replay launches the window-attention kernel 24 times and
+    NMS 1 / RoIAlign 2 / backward 0. The first call and two replays on
+    other images are bit-equal to eager. Gives the kernel's device ms in
+    one replay."""
+    from sln_amodal_tpu_torch.config import Config
+    from sln_amodal_tpu_torch.ops.window_attention_cuda import WINDOW_ATTENTION_KERNEL
+    from sln_amodal_tpu_torch.profile_infer import eager_dispatch, make_detector
+
+    blocks = sum(depth for _, _, depth in SWIN_S_STAGES)
+    cfg = Config(backbone="swin_s", compute_dtype=dtype, param_dtype="float32")
+    t0 = time.perf_counter()
+    det = make_detector(cfg, seed=0, device=dev)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    size = cfg.image_size
+    sets = [[rng.randint(0, 256, (size, size, 3), np.uint8)] for _ in range(3)]
+    kernel = WINDOW_ATTENTION_KERNEL
+    kernel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    pending = det.dispatch(sets[0])        # warm-up and capture, then the replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    captured = kernel.launches
+    if det.programs[0].captures != 1 or captured != 2 * blocks:
+        raise AssertionError(f"swin detect: captures {det.programs[0].captures}, wrapper "
+                             f"launches {captured}: one warm-up and one capture of {blocks}")
+    eager = eager_dispatch(det, sets[0])
+    eager_launches = kernel.launches - captured
+    if eager_launches != blocks or not outputs_equal(pending.out, eager.out):
+        raise AssertionError(f"swin detect: eager launches {eager_launches}, or the graphed "
+                             "detect differs from eager")
+    raw = pending.out
+    if not (torch.isfinite(raw.detections).all() and torch.isfinite(raw.masks).all()):
+        raise AssertionError("swin detect: non-finite outputs")
+    detections = len(det.collect(pending)[0]["scores"])
+    host = []
+    for i, other in enumerate(sets[1:]):
+        before = kernel.launches
+        got = det.dispatch(other).out
+        host.append(kernel.launches - before)
+        if not outputs_equal(got, eager_dispatch(det, other).out):
+            raise AssertionError(f"swin detect: replay {i + 1} differs from eager")
+    before = kernel.launches
+    by_kernel = device_kernels(lambda: det.dispatch(sets[0]), 3, expect=(WINDOW_KERNEL,))
+    host.append(kernel.launches - before)
+    window = {name: v for name, v in by_kernel.items() if WINDOW_KERNEL in name}
+    replayed = sum(n for _, n in window.values())
+    others = csrc_launches({name: n for name, (_, n) in by_kernel.items()})
+    if any(host) or replayed != blocks or others != ONE_DETECT:
+        raise AssertionError(f"swin detect: wrapper launches per replay {host}, on the "
+                             f"device per replay {replayed} window attention, {others}")
+    out = dict(dtype=dtype, batch=1, image=size, setup_s=setup_s, capture_s=capture_s,
+               captures=det.programs[0].captures,
+               bit_equal_to_eager={"first": True, "replays": 2},
+               launches=kernel.launches,
+               launches_by_call={"warm_up_and_capture": captured, "eager": eager_launches,
+                                 "replay_host": host[0]},
+               replayed_launches=dict(others, window_attention=replayed),
+               window_attention_device_ms=sum(t for t, _ in window.values()),
+               device_ms_per_detect=sum(t for t, _ in by_kernel.values()),
+               detections=detections,
+               peak_mem_bytes=int(torch.cuda.max_memory_allocated(dev)))
+    emit({"phase": "swin_detect", **out})
+    del det, pending, eager, raw
+    torch.cuda.empty_cache()
+    return out
 
 
 def reference_check(dev):
@@ -2967,14 +3145,14 @@ def train_graph(dev, tr):
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+def device_and_build():
+    """Phases 1 and 2: the card (TF32 off) and the kernels built; (device,
+    the card's name and power limit)."""
     from sln_amodal_tpu_torch.cuda_build import build_all
     from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
     from sln_amodal_tpu_torch.ops.roi_align_cuda import (ROI_ALIGN_BACKWARD_KERNEL,
                                                          ROI_ALIGN_KERNEL)
+    from sln_amodal_tpu_torch.ops.window_attention_cuda import WINDOW_ATTENTION_KERNEL
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -2988,10 +3166,19 @@ def main() -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
-    build_s, logs = build_all([NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL])
+    build_s, logs = build_all([NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL,
+                               WINDOW_ATTENTION_KERNEL])
     emit({"phase": "build", "seconds": build_s,
           "ptxas": {name: [ln for ln in log.splitlines() if "Used" in ln]
                     for name, log in logs.items()}})
+    return dev, smi
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev, smi = device_and_build()
 
     # both main paths' shapes: batch 2 (detect) and batch 8 (evaluate), the
     # RoIAlign kernels in float32 and bfloat16
@@ -3003,6 +3190,8 @@ def main() -> int:
     # the batch-8 train step's shapes (phase 15), as the step pads them
     backward_b8 = {str(dtype): check_roi_align_backward(dev, 8, dtype, layouts=("sampled",))
                    for dtype in (torch.float32, torch.bfloat16)}
+    # the Swin-S trunk's window attention at its four stage shapes
+    win = {dtype: check_window_attention(dev, dtype) for dtype in (torch.float32, torch.bfloat16)}
     phase_s = {}
 
     def timed(name, fn, *args):
@@ -3013,6 +3202,7 @@ def main() -> int:
 
     paths = timed("main_path", main_paths, dev)
     path = paths["float32"]
+    swin = timed("swin_detect", swin_detect, dev)
     with tempfile.TemporaryDirectory() as tmp:
         timed("reference", reference_check, dev)
         timed("reference_eval", reference_eval, dev, tmp)
@@ -3036,7 +3226,8 @@ def main() -> int:
     # float32 instantiation's beside them; launches from the evaluate and
     # train runs (bfloat16), every path's launches beside them (phase 4 in
     # float32 and bfloat16; phases 6 and 9-13 bfloat16, phase 13's export
-    # float32)
+    # float32); window attention per image at Swin-S's shapes, its launches
+    # from phase 4b
     def timing(k):
         return {key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "device_ms", "host_us")}
@@ -3079,6 +3270,7 @@ def main() -> int:
             "float32": None if k32 is None else timing(k32),
             **({"batch8_sampled": {d: timing(v) for d, v in backward_b8.items()}}
                if key == "roi_align_backward" else {})})
+    kernels.append(window_attention_entry(win[torch.bfloat16], win[torch.float32], swin))
     emit({"kernels": kernels})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3086,11 +3278,47 @@ def main() -> int:
     return 0
 
 
+
+def window_attention_entry(k, k32, swin) -> dict:
+    """The window-attention kernel's entry of the ``kernels`` line: one
+    image's 24 calls at Swin-S's shapes (phase 3, bfloat16 and float32
+    beside), its launches and device ms in the Swin-S detect (phase 4b)."""
+    def timing(t):
+        return {key: t[key] for key in ("max_abs_err", "max_err_units", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "device_ms", "host_us")}
+
+    return {"name": "window_attention", "route": "cuda",
+            "source": "sln_amodal_tpu_torch/csrc/window_attention.cu", "replaces": None,
+            "launches": swin["launches"], "launches_by_path": {"detect_swin_s": swin["launches"]},
+            "replayed_launches": {"detect_swin_s": swin["replayed_launches"]["window_attention"]},
+            "dtype": "bfloat16", "batch": 1, "per": "image (24 calls)", **timing(k),
+            "detect_device_ms": swin["window_attention_device_ms"], "library_ms": None,
+            "float32": timing(k32)}
+
+
+def window_attention_smoke() -> int:
+    """``python3 chip_smoke.py window_attention``: phases 1 and 2, the
+    window-attention kernel's part of phase 3, phase 4b and its line of
+    the ``kernels`` summary, without the other phases."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev, smi = device_and_build()
+    win = {dtype: check_window_attention(dev, dtype) for dtype in (torch.float32, torch.bfloat16)}
+    swin = swin_detect(dev)
+    emit({"kernels": [window_attention_entry(win[torch.bfloat16], win[torch.float32], swin)]})
+    print(smi)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["data_parallel_worker"]:
         sys.exit(data_parallel_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["serving_worker"]:
         sys.exit(serving_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["window_attention"]:
+        sys.exit(window_attention_smoke())
     if sys.argv[1:2] == ["backward_device_ms"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")

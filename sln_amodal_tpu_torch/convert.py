@@ -29,6 +29,7 @@ from torch import nn
 from .config import Config
 from .device import resolve_device, torch_dtype
 from .models.common import FrozenBatchNorm2d
+from .models.swin import WindowAttention
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -137,8 +138,11 @@ def init_params(config: Config, seed: int = 0, device="cuda") -> StateDict:
 
     Conv, transposed-conv and linear weights are truncated-normal with
     variance 1/fan_in (flax's lecun_normal), biases zero, frozen BN the
-    identity. The values come from a CPU ``torch.Generator``, so a seed gives
-    the same weights on every device."""
+    identity; for a Swin trunk, LayerNorm weights one and biases zero, and
+    the relative-position bias tables normal with std 0.02 (Swin's
+    ``trunc_normal_(std=.02)``, whose bounds of +-2 lie 100 std out). The
+    values come from a CPU ``torch.Generator``, so a seed gives the same
+    weights on every device."""
     from .models.sln import SLNAmodal
 
     dev = resolve_device(device)
@@ -156,6 +160,13 @@ def init_params(config: Config, seed: int = 0, device="cuda") -> StateDict:
             sd[prefix + "bias"] = torch.zeros(n)
             sd[prefix + "running_mean"] = torch.zeros(n)
             sd[prefix + "running_var"] = torch.ones(n)
+        elif isinstance(mod, nn.LayerNorm):
+            sd[prefix + "weight"] = torch.ones(mod.weight.shape)
+            sd[prefix + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, WindowAttention):
+            table = torch.empty(mod.relative_position_bias_table.shape)
+            nn.init.trunc_normal_(table, 0.0, 0.02, -2.0, 2.0, generator=gen)
+            sd[prefix + "relative_position_bias_table"] = table
         elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             shape = tuple(mod.weight.shape)
             if isinstance(mod, nn.ConvTranspose2d):

@@ -1,4 +1,6 @@
-"""ResNet backbone + FPN neck, with the reference's state_dict names.
+"""The trunk by ``Config.backbone``: ResNet + FPN neck, with the reference's
+state_dict names, or a Swin Transformer (``models/swin.py``) on the same
+neck (:func:`build_trunk`).
 
 The Matterport-style graph of the reference, as in the JAX package's
 ``models/backbone.py``:
@@ -19,8 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import (Conv2d, FrozenBatchNorm2d, max_pool_same, nchw, nhwc,
-                     subsample_2x, upsample_nearest_2x)
+from .common import Conv2d, FPNNeck, FrozenBatchNorm2d, max_pool_same, nchw
+from .swin import SWIN_SIZES, SwinFPN
 
 RESNET_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 
@@ -55,7 +57,7 @@ def make_stage(inplanes: int, planes: int, blocks: int, stride: int) -> nn.Seque
     return nn.Sequential(*layers)
 
 
-class ResNetFPN(nn.Module):
+class ResNetFPN(FPNNeck):
     """Backbone + neck: NHWC images [B, H, W, 3] -> (P2, P3, P4, P5, P6),
     each NHWC [B, H/s, W/s, out_channels]."""
 
@@ -68,12 +70,7 @@ class ResNetFPN(nn.Module):
         self.C3 = make_stage(256, 128, blocks[1], 2)
         self.C4 = make_stage(512, 256, blocks[2], 2)
         self.C5 = make_stage(1024, 512, blocks[3], 2)
-        for lvl, cin in ((2, 256), (3, 512), (4, 1024), (5, 2048)):
-            setattr(self, f"P{lvl}_conv1", Conv2d(cin, out_channels, 1))
-            # index 0 is the reference's SamePad2d(3, 1), folded into the
-            # conv's symmetric padding 1 (the same pads at stride 1)
-            setattr(self, f"P{lvl}_conv2", nn.Sequential(
-                nn.Identity(), Conv2d(out_channels, out_channels, 3, padding=1)))
+        self.add_neck((256, 512, 1024, 2048), out_channels)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         y = F.relu(self.C1(nchw(x)))
@@ -81,15 +78,14 @@ class ResNetFPN(nn.Module):
         c2 = self.C2(y)
         c3 = self.C3(c2)
         c4 = self.C4(c3)
-        c5 = self.C5(c4)
+        return self.neck(c2, c3, c4, self.C5(c4))
 
-        p5 = self.P5_conv1(c5)
-        p4 = self.P4_conv1(c4) + upsample_nearest_2x(p5)
-        p3 = self.P3_conv1(c3) + upsample_nearest_2x(p4)
-        p2 = self.P2_conv1(c2) + upsample_nearest_2x(p3)
-        p5 = self.P5_conv2(p5)
-        p4 = self.P4_conv2(p4)
-        p3 = self.P3_conv2(p3)
-        p2 = self.P2_conv2(p2)
-        p6 = subsample_2x(p5)
-        return tuple(nhwc(p) for p in (p2, p3, p4, p5, p6))
+
+def build_trunk(backbone: str, out_channels: int) -> FPNNeck:
+    """The trunk and FPN neck that ``backbone`` names."""
+    if backbone in RESNET_BLOCKS:
+        return ResNetFPN(backbone, out_channels)
+    if backbone in SWIN_SIZES:
+        return SwinFPN(SWIN_SIZES[backbone], out_channels)
+    raise ValueError(f"unknown backbone {backbone!r}; known: "
+                     f"{sorted(RESNET_BLOCKS) + sorted(SWIN_SIZES)}")

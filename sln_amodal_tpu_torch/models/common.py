@@ -64,6 +64,16 @@ class Linear(nn.Linear):
         return F.linear(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype))
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis in its input's dtype: weight and
+    bias cast to it. ATen keeps the mean and variance of a bfloat16 input
+    in float32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, _cast(self.weight, x.dtype),
+                            _cast(self.bias, x.dtype), self.eps)
+
+
 class FrozenBatchNorm2d(nn.Module):
     """Inference-mode batch norm on NCHW: y = x * scale + shift with
     scale = weight / sqrt(running_var + eps), shift = bias - mean * scale.
@@ -118,6 +128,36 @@ def subsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Stride-2 subsample of an NCHW tensor (the reference's
     MaxPool2d(kernel=1, stride=2) for FPN P6)."""
     return x[:, :, ::2, ::2]
+
+
+class FPNNeck(nn.Module):
+    """The FPN neck that every trunk shares: a lateral 1x1 conv on each of
+    C2..C5, the nearest 2x top-down path, a 3x3 smooth conv on each sum,
+    and P6 as a stride-2 subsample of P5. A trunk subclasses it, builds its
+    stages, then calls :meth:`add_neck` (so the state_dict lists the trunk
+    first) and returns :meth:`neck` of its C2..C5."""
+
+    def add_neck(self, channels, out_channels: int) -> None:
+        """``channels``: the in-channels of C2..C5."""
+        for lvl, cin in zip(range(2, 6), channels):
+            setattr(self, f"P{lvl}_conv1", Conv2d(cin, out_channels, 1))
+            # index 0 is the reference's SamePad2d(3, 1), folded into the
+            # conv's symmetric padding 1 (the same pads at stride 1)
+            setattr(self, f"P{lvl}_conv2", nn.Sequential(
+                nn.Identity(), Conv2d(out_channels, out_channels, 3, padding=1)))
+
+    def neck(self, c2, c3, c4, c5) -> Tuple[torch.Tensor, ...]:
+        """NCHW C2..C5 -> NHWC (P2, P3, P4, P5, P6)."""
+        p5 = self.P5_conv1(c5)
+        p4 = self.P4_conv1(c4) + upsample_nearest_2x(p5)
+        p3 = self.P3_conv1(c3) + upsample_nearest_2x(p4)
+        p2 = self.P2_conv1(c2) + upsample_nearest_2x(p3)
+        p5 = self.P5_conv2(p5)
+        p4 = self.P4_conv2(p4)
+        p3 = self.P3_conv2(p3)
+        p2 = self.P2_conv2(p2)
+        p6 = subsample_2x(p5)
+        return tuple(nhwc(p) for p in (p2, p3, p4, p5, p6))
 
 
 def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:

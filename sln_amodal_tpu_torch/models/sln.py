@@ -7,7 +7,8 @@ reference ``.pth`` layout loads with ``strict=True``.
 
 The graph, per batch of molded NHWC images:
 
-1. ResNet-FPN -> P2..P6; the RPN head over every level;
+1. the trunk and FPN of ``Config.backbone`` (ResNet or Swin) -> P2..P6;
+   the RPN head over every level;
 2. proposals: top ``pre_nms_limit`` -> deltas -> clip -> NMS (CUDA kernel
    on the card) -> ``post_nms_rois_inference`` ROIs;
 3. 7x7 RoIAlign over P2..P5 (CUDA kernel on the card), the classifier;
@@ -54,7 +55,7 @@ from ..device import resolve_device, torch_dtype
 from ..ops.anchors import config_anchors
 from ..ops.roi_align import crop_and_resize
 from ..ops.roi_align_cuda import pyramid_roi_align
-from .backbone import ResNetFPN
+from .backbone import build_trunk
 from .common import resize_bilinear, resize_bilinear_2d
 from .deeplab import DeepLabV2MSC
 from .heads import ClassifierHead, MaskHead, RefineHead, RPNHead
@@ -100,7 +101,7 @@ class SLNAmodal(nn.Module):
                              f"{config.param_dtype!r}")
         dev = resolve_device(device)
         self.config = config
-        self.fpn = ResNetFPN(config.backbone, config.fpn_channels)
+        self.fpn = build_trunk(config.backbone, config.fpn_channels)
         self.rpn = RPNHead(config.fpn_channels, len(config.rpn_anchor_ratios),
                            config.rpn_anchor_stride)
         self.classifier = ClassifierHead(config.num_classes, config.pool_size,
@@ -121,13 +122,13 @@ class SLNAmodal(nn.Module):
         self.eval()
 
     def cast_weights_to_compute_dtype(self) -> "SLNAmodal":
-        """Hold the convolution and linear weights in the compute dtype, for
-        a model whose weights no longer change (inference): the casts each
-        layer makes at use then do nothing. The values are those the casts
-        give; the frozen BN statistics keep ``param_dtype``. A no-op where
-        the two dtypes agree."""
+        """Hold the convolution, linear and LayerNorm weights in the compute
+        dtype, for a model whose weights no longer change (inference): the
+        casts each layer makes at use then do nothing. The values are those
+        the casts give; the frozen BN statistics and Swin's relative-position
+        bias tables keep ``param_dtype``. A no-op where the two dtypes agree."""
         for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, nn.LayerNorm)):
                 for p in mod.parameters(recurse=False):
                     p.data = p.data.to(self.compute_dtype)
         return self

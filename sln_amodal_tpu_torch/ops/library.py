@@ -1,4 +1,4 @@
-"""The port's three kernels as ``torch.library`` custom ops.
+"""The port's four kernels as ``torch.library`` custom ops.
 
 Each op is one node to the dispatcher, to autograd and to ``torch.export``,
 which traces on fake tensors that have no storage and so cannot follow a
@@ -12,7 +12,9 @@ checks that read ``data_ptr()`` stay in the launches.
 - ``sln_amodal::roi_align`` — ``csrc/roi_align.cu`` / ``roi_align.pyramid_roi_align_plain``,
   differentiable in the levels through
 - ``sln_amodal::roi_align_backward`` — ``csrc/roi_align_backward.cu`` /
-  ``roi_align.pyramid_roi_align_backward_plain``.
+  ``roi_align.pyramid_roi_align_backward_plain``;
+- ``sln_amodal::window_attention`` — ``csrc/window_attention.cu`` /
+  ``window_attention.window_attention_plain`` (inference only: no backward).
 
 Importing ``sln_amodal_tpu_torch.ops`` registers them (``ops/__init__.py``),
 so a saved exported program that holds them loads after that import.
@@ -28,6 +30,8 @@ from .nms import nms_sorted_batched_plain
 from .nms_cuda import launch_nms
 from .roi_align import pyramid_roi_align_backward_plain, pyramid_roi_align_plain
 from .roi_align_cuda import launch_roi_align, launch_roi_align_backward
+from .window_attention import window_attention_plain
+from .window_attention_cuda import launch_window_attention
 
 NAMESPACE = "sln_amodal"
 Tensor = torch.Tensor
@@ -108,3 +112,20 @@ def _roi_align_vjp(ctx, grad):
 
 
 roi_align.register_autograd(_roi_align_vjp, setup_context=_save_for_backward)
+
+
+# ---------------------------------------------------- window attention --
+
+@torch.library.custom_op(f"{NAMESPACE}::window_attention", mutates_args=(),
+                         device_types="cpu")
+def window_attention(qkv: Tensor, table: Tensor, heads: int, window: int,
+                     shift: int) -> Tensor:
+    return window_attention_plain(qkv, table, heads, window, shift)
+
+
+window_attention.register_kernel("cuda")(launch_window_attention)
+
+
+@window_attention.register_fake
+def _(qkv, table, heads, window, shift):
+    return qkv.new_empty((*qkv.shape[:3], qkv.shape[3] // 3))

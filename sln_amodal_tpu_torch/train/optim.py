@@ -126,7 +126,9 @@ class StagedSGD:
     ``optax.MultiSteps`` when ``accumulate_steps > 1``): sets
     ``requires_grad`` by the stage's mask (the rest of the model takes no
     gradient and has no accumulator), and steps as the optax chain does. A
-    new stage takes a new one, with fresh momentum."""
+    new stage takes a new one, with fresh momentum. A stage that trains the
+    weights of a trunk that cannot train (a Swin trunk, whose
+    ``training_lacks`` says why) raises ``ValueError``."""
 
     def __init__(self, model: nn.Module, stage: Stage, learning_rate: float,
                  momentum: float = 0.9, weight_decay: float = 1e-4,
@@ -134,6 +136,14 @@ class StagedSGD:
         if accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be >= 1, not {accumulate_steps}")
         self.mask = trainable_mask(model, stage)
+        lacks = getattr(getattr(model, "fpn", None), "training_lacks", None)
+        trunk = [name for name, on in self.mask.items()
+                 if on and name.startswith("fpn.C")]
+        if lacks and trunk:
+            raise ValueError(f"stage {stage if isinstance(stage, str) else 'custom'!r} "
+                             f"trains the {type(model.fpn).__name__} trunk's weights "
+                             f"({trunk[0]}, ...), which needs {lacks}; neither is "
+                             "implemented: train the 'heads' stage only")
         self.params = []
         for name, p in model.named_parameters():
             p.requires_grad_(self.mask[name])

@@ -21,6 +21,9 @@ from sln_amodal_tpu_torch.ops.roi_align import (pyramid_roi_align_backward_plain
 from sln_amodal_tpu_torch.ops.roi_align_cuda import (
     ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_KERNEL, level_scale_reciprocal,
     pyramid_roi_align, pyramid_roi_align_backward)
+from sln_amodal_tpu_torch.ops.window_attention import window_attention_plain
+from sln_amodal_tpu_torch.ops.window_attention_cuda import (WINDOW_ATTENTION_KERNEL,
+                                                            window_attention)
 from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 from torch_port_helpers import library_op_samples
 
@@ -323,7 +326,8 @@ def test_roi_align_autograd_uses_both_kernels(cuda_device):
 
 
 OP_CASES = [("nms_sorted_batched", 0), ("nms_sorted_batched", 1), ("roi_align", 0),
-            ("roi_align", 1), ("roi_align_backward", 0), ("roi_align_backward", 1)]
+            ("roi_align", 1), ("roi_align_backward", 0), ("roi_align_backward", 1),
+            ("window_attention", 0), ("window_attention", 1)]
 
 
 @pytest.mark.parametrize("name,case", OP_CASES)
@@ -785,3 +789,60 @@ def test_a_step_that_syncs_in_its_capture_raises(cuda_device):
         captured(*inputs)
     assert captured.captures == 0 and captured.keys() == []
     assert torch.cuda.current_stream(cuda_device) == stream
+
+
+# ------------------------------------------------------ window attention --
+
+# Swin-S's four stages at the 1024-square frame: padded token grid, heads
+SWIN_S_STAGES = [(259, 3), (133, 6), (70, 12), (35, 24)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("grid,heads", SWIN_S_STAGES)
+def test_window_attention_kernel_matches_plain(cuda_device, grid, heads, shift, dtype):
+    """The kernel against the op's CPU path at each stage shape: within
+    1e-5 of the largest output in float32 (both compute in float32, the
+    products in other orders), one bfloat16 unit (2^-8 of it) in bfloat16
+    (the one rounding at the output may fall on either side); a repeat
+    launch is bit-equal; one launch a call."""
+    gen = torch.Generator().manual_seed(grid * 10 + shift)
+    qkv = torch.randn((1, grid, grid, 3 * heads * 32), generator=gen).to(dtype)
+    table = 0.5 * torch.randn((169, heads), generator=gen)
+    want = window_attention_plain(qkv, table, heads, 7, shift).float()
+    q, t = qkv.to(cuda_device), table.to(cuda_device)
+    before = WINDOW_ATTENTION_KERNEL.launches
+    got = window_attention(q, t, heads, 7, shift)
+    again = window_attention(q, t, heads, 7, shift)
+    assert WINDOW_ATTENTION_KERNEL.launches == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    err = float((got.cpu().float() - want).abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+    assert err <= tol * float(want.abs().max()), err
+
+
+def test_window_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    qkv = torch.zeros((1, 14, 14, 3 * 2 * 32), device=cuda_device)
+    table = torch.zeros((169, 2), device=cuda_device)
+    for args in [(qkv.double(), table, 2, 7, 0), (qkv[:, :13], table, 2, 7, 0),
+                 (qkv, table, 3, 7, 0), (qkv, table, 2, 7, 7), (qkv, table[:, :1], 2, 7, 0)]:
+        with pytest.raises(ValueError):
+            window_attention(*args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_swin_detect_is_bit_equal_to_eager(cuda_device, dtype):
+    """``Config(backbone="swin_s")`` through the captured graph: the first
+    dispatch warms up and captures (24 window-attention launches each, one
+    per block), replays launch nothing from the host, and every dispatch
+    equals the eager model bit for bit."""
+    cfg = Config(**dict(GRAPH, backbone="swin_s", compute_dtype=dtype))
+    det = Detector(cfg, detecting_weights(Config(**dict(SMALL, backbone="swin_s"))),
+                   device=cuda_device)
+    before = WINDOW_ATTENTION_KERNEL.launches
+    for seed in (0, 1, 2):
+        images = seeded_images(seed)
+        got = det.dispatch(images).out
+        assert WINDOW_ATTENTION_KERNEL.launches == before + 48 + 24 * seed
+        assert_bit_equal(got, eager_outputs(det, images))
+        assert det.programs[0].captures == 1

@@ -43,7 +43,8 @@ def library_op_samples(device, seed=0):
     """{op name: [(args, kwargs), ...]}: inputs of each custom op of
     ``ops/library.py`` on ``device`` for ``torch.library.opcheck`` (small
     shapes; RoIAlign levels that require a gradient, float32, float64 and
-    bfloat16)."""
+    bfloat16; window attention on shifted and unshifted grids, float32 and
+    bfloat16: the dtypes its CUDA kernel takes)."""
     rng = np.random.RandomState(seed)
     gen = torch.Generator().manual_seed(seed)
 
@@ -80,7 +81,16 @@ def library_op_samples(device, seed=0):
     # bfloat16 levels with float32 boxes (the model's)
     roi.append(roi_case(torch.bfloat16, torch.float32))
     backward.append(backward_case(torch.bfloat16, torch.float32))
-    return {"nms_sorted_batched": nms, "roi_align": roi, "roi_align_backward": backward}
+
+    def attention_case(dtype, b, hp, wp, heads, shift):
+        qkv = torch.randn((b, hp, wp, 3 * heads * 32), generator=gen).to(device, dtype)
+        table = torch.randn((169, heads), generator=gen).to(device)
+        return ((qkv, table, heads, 7, shift), {})
+
+    attention = [attention_case(torch.float32, 1, 14, 7, 2, 3),
+                 attention_case(torch.bfloat16, 2, 7, 14, 1, 0)]
+    return {"nms_sorted_batched": nms, "roi_align": roi, "roi_align_backward": backward,
+            "window_attention": attention}
 
 
 @pytest.fixture(scope="module", autouse=True)
