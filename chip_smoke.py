@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py window_attention   # phases 1, 2, 3's window attention and 4b
+    python3 chip_smoke.py resize             # phases 1, 2 and 3's squash resize
 
 Phases (each prints one JSON line):
 
@@ -42,7 +43,12 @@ Phases (each prints one JSON line):
    shifted by 3, in float32 and bfloat16, against the op's plain path on
    the card: within 8 float32 units or one bfloat16 unit of the largest
    output, two launches bit-equal, one launch a call; times per shape
-   and per image (24 calls).
+   and per image (24 calls). The squash resize of raw frames to 1024
+   square (``sln_amodal::resize_bilinear_u8``) at 640x480 batch 1 and at
+   a mixed batch of 8 (the six COCO sizes of the benchmark's traffic, the
+   1024 square and D2SA's 1920x1440), bit-equal to the host's PIL, a
+   repeat bit-equal, one launch a call; its bound is the raw bytes read
+   and the frames written once.
 4. main path — ``Detector.detect`` on seeded 1024² images at the full
    width of the one supported model (ResNet-101-FPN, DeepLabV2-MSC GLM at
    513², 6000 -> 1000 proposals, 100 detections), random seeded weights,
@@ -55,9 +61,11 @@ Phases (each prints one JSON line):
    to the eager model (``SLNAmodal.infer_detect_only`` called directly) on
    the same inputs; ``torch.profiler`` finds, by kernel name, NMS 1 /
    RoIAlign 2 / backward 0 launches of the csrc kernels per replay, and a
-   replay calls no wrapper. Graphed and eager side by side (in turns):
-   dispatch-to-sync and wall ms, the host's launch calls per detect, the
-   device kernels, kernel ms and busy share of one dispatch, peak device
+   replay calls no wrapper; the squash resize, outside the graph, launches
+   once per ``dispatch`` (its counter and, by name, the profiler). Graphed
+   and eager side by side (in turns): dispatch-to-sync and wall ms, the
+   host's launch calls per detect, the device kernels, kernel ms and busy
+   share of one dispatch, peak device
    memory (from the capture on, and of the eager graph alone) and the
    bytes the graph keeps reserved (its pool and buffers). At batch
    2, for bfloat16, the share of float32's top-100 boxes it also keeps at
@@ -84,7 +92,8 @@ Phases (each prints one JSON line):
    per image, ``both/all`` AP and AR@100 (nonzero), peak device memory, and
    the kernels' launches: the graph captured once (its warm-up and capture
    the wrappers' only launches) and, in the profiled pass, NMS once and
-   RoIAlign twice per batch, the backward never.
+   RoIAlign twice per batch, the backward never; the squash resize once
+   per batch.
 7. reference_train — one training step at 128², float64, on the card
    (kernels) and on the CPU (plain versions) from the same weights, batch
    and target-layer draws: equal sampled ROIs, losses within 1e-6
@@ -700,6 +709,67 @@ def check_window_attention(dev, dtype=torch.float32):
     return total
 
 
+# the squash resize's cases: (name, [(height, width)]): a COCO frame alone
+# (detect), and a batch of 8 of the benchmark's six COCO sizes, the model's
+# own frame and D2SA's 1920x1440 (evaluate)
+RESIZE_CASES = (("batch1", [(480, 640)]),
+                ("batch8", [(480, 640), (640, 480), (427, 640), (640, 427), (375, 500),
+                            (500, 375), (1024, 1024), (1440, 1920)]))
+RESIZE_KERNEL_NAME = "resize_bilinear_kernel"
+
+
+def resize_launches_in(by_kernel: dict) -> int:
+    """The squash resize's launches per call in :func:`device_kernels`'s
+    {name: (ms, launches)}."""
+    return sum(n for name, (_, n) in by_kernel.items() if RESIZE_KERNEL_NAME in name)
+
+
+def check_resize(dev, size=1024) -> dict:
+    """The squash resize through its wrapper and custom op at
+    ``RESIZE_CASES``: each frame bit-equal to the host's PIL, a repeat
+    launch bit-equal, one launch a call (its counter and, by name, the
+    profiler); the wrapper's ms, device ms, host us, the plain path's ms on
+    the card, and the bound: the raw bytes read and the frames written
+    once."""
+    from sln_amodal_tpu_torch.config import Config
+    from sln_amodal_tpu_torch.ops.resize import resize_bilinear_u8_plain
+    from sln_amodal_tpu_torch.ops.resize_cuda import RESIZE_KERNEL, resize_bilinear_u8
+    from sln_amodal_tpu_torch.utils.image import mold_inputs, pil_molded
+
+    out = {}
+    for name, sizes in RESIZE_CASES:
+        rng = np.random.RandomState(len(sizes))
+        images = [rng.randint(0, 256, (h, w, 3), np.uint8) for h, w in sizes]
+        packed, table, _ = mold_inputs(images, Config(image_size=size))
+        args = (torch.from_numpy(packed).to(dev), torch.from_numpy(table), size)
+        before = RESIZE_KERNEL.launches
+        got, again = resize_bilinear_u8(*args), resize_bilinear_u8(*args)
+        torch.cuda.synchronize()
+        launches = RESIZE_KERNEL.launches - before
+        if not torch.equal(got, again):
+            raise AssertionError(f"resize {name}: two launches differ")
+        want = pil_molded(images, size)
+        if launches != 2 or not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError(f"resize {name}: {launches} launches for two calls, or the "
+                                 "frames differ from PIL's")
+        by_kernel = device_kernels(lambda: resize_bilinear_u8(*args), 10,
+                                   expect=(RESIZE_KERNEL_NAME,))
+        if resize_launches_in(by_kernel) != 1:
+            raise AssertionError(f"resize wrapper launches {by_kernel}")
+        nbytes = packed.nbytes + got.numel()
+        bound_ms, bound_by = bound(nbytes, 0.0)
+        case = dict(case=name, frames=[list(hw) for hw in sizes], bytes=nbytes,
+                    ms=cuda_ms(lambda: resize_bilinear_u8(*args), 20),
+                    device_ms=sum(t for k, (t, _) in by_kernel.items()
+                                  if RESIZE_KERNEL_NAME in k),
+                    host_us=host_us(lambda: resize_bilinear_u8(*args), 30),
+                    plain_ms=cuda_ms(lambda: resize_bilinear_u8_plain(*args), 3),
+                    bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "kernel", "name": "resize_bilinear_u8", "size": size, **case})
+        out[name] = case
+    return out
+
+
 # the csrc kernel whose launches count each op call, by its name in a
 # torch.profiler trace: a replayed graph launches the captured kernels
 # without calling the wrappers, whose counters then count only the
@@ -743,6 +813,7 @@ def main_path(dev, dtype="float32", batch=2):
     """Phase 4 in one compute dtype (float32 parameters either way) and
     batch: the graphed ``Detector.detect`` against the eager model."""
     from sln_amodal_tpu_torch.config import Config
+    from sln_amodal_tpu_torch.ops.resize_cuda import RESIZE_KERNEL
     from sln_amodal_tpu_torch.profile_infer import eager_dispatch, kernel_times, make_detector
 
     cfg = Config(compute_dtype=dtype, param_dtype="float32")
@@ -759,7 +830,7 @@ def main_path(dev, dtype="float32", batch=2):
             for _ in range(4)]
     images = sets[0]
     kernels = dict(zip(KERNEL_NAMES, train_kernels()))
-    for k in kernels.values():
+    for k in (*kernels.values(), RESIZE_KERNEL):
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -808,6 +879,10 @@ def main_path(dev, dtype="float32", batch=2):
         raise AssertionError(f"launches per replay {replay_launches} (want {ONE_DETECT}), "
                              f"captures {det.programs[0].captures}, wrapper launches "
                              f"{wrapper_launches} over {eager_calls} eager calls")
+    # the squash resize runs outside the graph: one launch every dispatch
+    resize_per_dispatch = resize_launches_in(device_kernels(lambda: det.dispatch(images), 3))
+    if resize_per_dispatch != 1:
+        raise AssertionError(f"resize launches per dispatch on the device {resize_per_dispatch}")
 
     # graphed and eager side by side, in turns
     eager = lambda: eager_dispatch(det, images)          # noqa: E731
@@ -840,6 +915,9 @@ def main_path(dev, dtype="float32", batch=2):
     n_det = [len(r["scores"]) for r in results]
     if min(n_det) == 0 or any(r["masks"].shape != (size, size, k) for r, k in zip(results, n_det)):
         raise AssertionError(f"detections per image {n_det}")
+    if RESIZE_KERNEL.launches != det.dispatches:
+        raise AssertionError(f"resize launches {RESIZE_KERNEL.launches} over "
+                             f"{det.dispatches} dispatches")
     side = {kind: dict(dispatch_to_sync_ms=statistics.median(rec[f"{kind}_dispatch_ms"]),
                        wall_ms=statistics.median(rec[f"{kind}_wall_ms"]),
                        host_launches_per_detect=profiles[kind]["host_launches"],
@@ -853,6 +931,7 @@ def main_path(dev, dtype="float32", batch=2):
                capture_s=capture_s, captures=captures,
                bit_equal_to_eager={"first": True, "replays": 3, "pipelined": 2},
                launches=launches, launches_per_replay=replay_launches,
+               resize_launches=RESIZE_KERNEL.launches, dispatches=det.dispatches,
                ms_per_detect=side["graphed"]["wall_ms"],
                device_ms_per_detect=side["graphed"]["dispatch_to_sync_ms"],
                graphed=side["graphed"], eager=side["eager"],
@@ -1120,6 +1199,7 @@ def eval_path(dev, tmp):
     from sln_amodal_tpu_torch.cli import train as cli
     from sln_amodal_tpu_torch.eval_amodal import rle
     from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
+    from sln_amodal_tpu_torch.ops.resize_cuda import RESIZE_KERNEL
     from sln_amodal_tpu_torch.ops.roi_align_cuda import (ROI_ALIGN_BACKWARD_KERNEL,
                                                          ROI_ALIGN_KERNEL)
     from sln_amodal_tpu_torch.utils.synthetic import biased_pair, make_synthetic_dataset
@@ -1135,7 +1215,7 @@ def eval_path(dev, tmp):
     dataset, coco, ids = cli.load_eval_dataset(args)
     kernels = {"nms": NMS_KERNEL, "roi_align": ROI_ALIGN_KERNEL,
                "roi_align_backward": ROI_ALIGN_BACKWARD_KERNEL}
-    for k in kernels.values():
+    for k in (*kernels.values(), RESIZE_KERNEL):
         k.launches = 0
     detector = cli.make_detector(args, config)
     setup_s = time.perf_counter() - t0
@@ -1181,6 +1261,12 @@ def eval_path(dev, tmp):
     per_batch = csrc_launches_in(prof, batches // 2)
     if per_batch != ONE_DETECT or detector.programs[0].captures != 1:
         raise AssertionError(f"replayed launches per evaluate batch {per_batch}")
+    # and the squash resize once per batch, outside the graph
+    resize_per_batch = round(sum(RESIZE_KERNEL_NAME in e.name for e in prof.events()
+                                 if e.device_type == DeviceType.CUDA) / (batches // 2))
+    if resize_per_batch != 1 or RESIZE_KERNEL.launches != detector.dispatches:
+        raise AssertionError(f"resize launches per evaluate batch {resize_per_batch}, "
+                             f"{RESIZE_KERNEL.launches} over {detector.dispatches} dispatches")
 
     t = time.perf_counter()
     stats = cli.score(coco, dataset, ids, results, "COCOA", verbose=False)
@@ -1208,7 +1294,8 @@ def eval_path(dev, tmp):
                both_all_ap=float(stats["both/all"][0]),
                both_all_ar100=float(stats["both/all"][5]),
                peak_mem_bytes=int(peak), batches=batches, captures=captures,
-               launches=launches, launches_per_batch=per_batch)
+               launches=launches, launches_per_batch=per_batch,
+               resize_launches=RESIZE_KERNEL.launches, dispatches=detector.dispatches)
     emit({"phase": "eval", **out})
     return dict(out, root=root, model=args.model)
 
@@ -3152,6 +3239,7 @@ def device_and_build():
     from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL
     from sln_amodal_tpu_torch.ops.roi_align_cuda import (ROI_ALIGN_BACKWARD_KERNEL,
                                                          ROI_ALIGN_KERNEL)
+    from sln_amodal_tpu_torch.ops.resize_cuda import RESIZE_KERNEL
     from sln_amodal_tpu_torch.ops.window_attention_cuda import WINDOW_ATTENTION_KERNEL
 
     dev = torch.device("cuda", 0)
@@ -3167,7 +3255,7 @@ def device_and_build():
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     build_s, logs = build_all([NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL,
-                               WINDOW_ATTENTION_KERNEL])
+                               WINDOW_ATTENTION_KERNEL, RESIZE_KERNEL])
     emit({"phase": "build", "seconds": build_s,
           "ptxas": {name: [ln for ln in log.splitlines() if "Used" in ln]
                     for name, log in logs.items()}})
@@ -3192,6 +3280,8 @@ def main() -> int:
                    for dtype in (torch.float32, torch.bfloat16)}
     # the Swin-S trunk's window attention at its four stage shapes
     win = {dtype: check_window_attention(dev, dtype) for dtype in (torch.float32, torch.bfloat16)}
+    # the squash resize of raw frames at the detect and evaluate batches
+    resize = check_resize(dev)
     phase_s = {}
 
     def timed(name, fn, *args):
@@ -3271,6 +3361,7 @@ def main() -> int:
             **({"batch8_sampled": {d: timing(v) for d, v in backward_b8.items()}}
                if key == "roi_align_backward" else {})})
     kernels.append(window_attention_entry(win[torch.bfloat16], win[torch.float32], swin))
+    kernels.append(resize_entry(resize, paths, ev))
     emit({"kernels": kernels})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3312,6 +3403,40 @@ def window_attention_smoke() -> int:
                                  "count": torch.cuda.device_count()}})
     return 0
 
+def resize_entry(resize, paths=None, ev=None) -> dict:
+    """The squash resize's entry of the ``kernels`` line: batch 8 (the
+    mixed sizes) with batch 1 beside it, its launches per ``dispatch`` on
+    the detect and evaluate paths (phases 4 and 6) where they ran."""
+    def timing(t):
+        return {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                        "host_us", "bytes")}
+
+    by_path = {} if paths is None else {
+        f"detect_{kind}": {"launches": p["resize_launches"], "dispatches": p["dispatches"]}
+        for kind, p in paths.items()}
+    if ev is not None:
+        by_path["evaluate"] = {"launches": ev["resize_launches"], "dispatches": ev["dispatches"]}
+    return {"name": "resize_bilinear_u8", "route": "cuda",
+            "source": "sln_amodal_tpu_torch/csrc/resize_bilinear.cu", "replaces": None,
+            "launches_by_path": by_path, "dtype": "uint8", "batch": 8, "per": "call",
+            **timing(resize["batch8"]), "batch1": timing(resize["batch1"]),
+            "library_ms": None}
+
+
+def resize_smoke() -> int:
+    """``python3 chip_smoke.py resize``: phases 1 and 2, the squash
+    resize's part of phase 3 and its line of the ``kernels`` summary."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev, smi = device_and_build()
+    emit({"kernels": [resize_entry(check_resize(dev))]})
+    print(smi)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["data_parallel_worker"]:
         sys.exit(data_parallel_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
@@ -3319,6 +3444,8 @@ if __name__ == "__main__":
         sys.exit(serving_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["window_attention"]:
         sys.exit(window_attention_smoke())
+    if sys.argv[1:2] == ["resize"]:
+        sys.exit(resize_smoke())
     if sys.argv[1:2] == ["backward_device_ms"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")

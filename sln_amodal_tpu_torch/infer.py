@@ -1,8 +1,11 @@
 """High-level inference API: the reference's ``MaskRCNN.detect`` as a host
 wrapper around :class:`~sln_amodal_tpu_torch.models.sln.SLNAmodal`.
 
-The host molds inputs (PIL resize, uint8 upload; the mean pixel is
-subtracted on the device) and unmolds outputs (box rescale, mask paste).
+The host packs the raw frames (``utils/image.py::mold_inputs``) and
+uploads them; the card squash-resizes them to the model's square frame
+(``sln_amodal::resize_bilinear_u8``, bit-equal to PIL's bilinear) and
+subtracts the mean pixel. The host unmolds outputs (box rescale, mask
+paste).
 On the card the device program runs as one captured CUDA graph per shape
 (``compiled.py``), as the JAX package runs it as one jitted program. With a
 mesh (``parallel/mesh.py``) each batch is split over its devices, one
@@ -10,7 +13,9 @@ replica of the model on each.
 
 Each ``dispatch`` is a request, numbered from 0 per ``Detector``; its
 spans (``utils/profiling.py``) carry that id: ``detector.dispatch`` with
-``detector.mold``, ``detector.upload`` and ``detector.replay`` inside it,
+``detector.mold`` (the packing), ``detector.upload`` (the raw bytes and the
+windows), ``detector.resize`` (the op's launch: ``images``, ``launches`` of
+its kernel) and ``detector.replay`` inside it,
 and ``detector.collect`` with ``detector.wait`` and one
 ``detector.unmold`` per image. ``detector.wait`` is the host blocked on the
 card: the outputs' copy to the host waits for all the work queued on the
@@ -27,7 +32,8 @@ import torch
 from .compiled import CapturedProgram, CudaGraphs
 from .config import Config
 from .device import resolve_device
-from .parallel.mesh import make_mesh, shard_batch
+from .ops.resize_cuda import RESIZE_KERNEL, resize_bilinear_u8
+from .parallel.mesh import make_mesh
 from .utils import image as image_utils
 from .utils import profiling
 
@@ -41,6 +47,22 @@ class PendingDetect(NamedTuple):
     windows: np.ndarray
     out: Any
     request: Optional[int] = None
+
+
+def _frame_blocks(packed: np.ndarray, table: np.ndarray, windows: np.ndarray, devices):
+    """The batch as one contiguous row block per device: [(the raw bytes of
+    its frames on the device, their host table rebased to those bytes, its
+    float32 windows on the device)]. The rows split evenly."""
+    per = len(table) // len(devices)
+    blocks = []
+    for i, dev in enumerate(devices):
+        rows = table[i * per:(i + 1) * per]
+        start, end = rows[:, 0].min(), (rows[:, 0] + rows[:, 1] * rows[:, 2] * 3).max()
+        blocks.append((torch.from_numpy(packed[start:end]).to(dev),
+                       torch.from_numpy(rows - np.array([start, 0, 0])),
+                       torch.as_tensor(windows[i * per:(i + 1) * per], dtype=torch.float32,
+                                       device=dev)))
+    return blocks
 
 
 def _program(model, mean: torch.Tensor, detect_only: bool):
@@ -73,8 +95,9 @@ class Detector:
     data-parallel serving and replaces ``device``: one replica of the model
     on each device of the mesh (two on a device listed twice), and each
     ``dispatch`` pads a ragged batch to a multiple of the mesh size by
-    repeating its last image, then launches each device's row block from
-    this thread; ``collect`` walks only the real images.
+    repeating its last raw image, then uploads, resizes and launches each
+    device's row block from this thread; ``collect`` walks only the real
+    images.
 
     On a card, each replica's program (the mean subtraction and the model's
     ``infer_detect_only`` or ``infer``) is captured as a CUDA graph at the
@@ -121,27 +144,33 @@ class Detector:
     dispatches = 0      # dispatch calls so far: the next request id
 
     def dispatch(self, images: List[np.ndarray]) -> PendingDetect:
-        """Mold + launch the device work without waiting for it (CUDA
-        launches are asynchronous)."""
+        """Pack, upload, resize on the device and launch the device work
+        without waiting for it (CUDA launches are asynchronous)."""
         request = self.dispatches
         self.dispatches += 1
         with profiling.span("detector.dispatch", request, images=len(images)):
             with profiling.span("detector.mold"):
-                molded, windows = image_utils.mold_inputs(images, self.config)
+                packed, table, windows = image_utils.mold_inputs(images, self.config)
             if self.mesh is not None:
                 # splitting over the mesh needs a divisible batch: repeat the
-                # last row; collect walks only the real images
+                # last raw image (its table row); collect walks only the real
+                # images
                 pad = (-len(images)) % len(self.mesh)
                 if pad:
-                    molded = np.concatenate([molded, np.repeat(molded[-1:], pad, axis=0)])
+                    table = np.concatenate([table, np.repeat(table[-1:], pad, axis=0)])
                     windows = np.concatenate([windows, np.repeat(windows[-1:], pad, axis=0)])
             devices = [self.device] if self.mesh is None else list(self.mesh)
             with profiling.span("detector.upload") as upload:
-                blocks = shard_batch((torch.from_numpy(molded),
-                                      torch.as_tensor(windows, dtype=torch.float32)), devices)
-                upload.count(bytes=sum(t.nbytes for block in blocks for t in block))
+                blocks = _frame_blocks(packed, table, windows, devices)
+                upload.count(bytes=sum(raw.nbytes + w.nbytes for raw, _, w in blocks))
+            with profiling.span("detector.resize", images=len(table)) as resize:
+                launched = RESIZE_KERNEL.launches
+                frames = [resize_bilinear_u8(raw, rows, self.config.image_size)
+                          for raw, rows, _ in blocks]
+                resize.count(launches=RESIZE_KERNEL.launches - launched)
             with profiling.span("detector.replay"):
-                out = [self._launch(i, *block) for i, block in enumerate(blocks)]
+                out = [self._launch(i, f, block[2])
+                       for i, (f, block) in enumerate(zip(frames, blocks))]
             return PendingDetect(images, windows, out[0] if self.mesh is None else out,
                                  request)
 

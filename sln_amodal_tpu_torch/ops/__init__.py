@@ -1,8 +1,10 @@
-"""Box ops, NMS, RoIAlign and Swin's window attention, with their CUDA kernels.
+"""Box ops, NMS, RoIAlign, Swin's window attention and the frames' squash
+resize, with their CUDA kernels.
 
 Importing the package registers the kernels as ``torch.library`` custom ops
 (:mod:`.library`), which the wrappers in :mod:`.nms_cuda`,
-:mod:`.roi_align_cuda` and :mod:`.window_attention_cuda` call.
+:mod:`.roi_align_cuda`, :mod:`.window_attention_cuda` and :mod:`.resize_cuda`
+call.
 """
 
 from . import library  # noqa: F401  (registers the sln_amodal:: ops)

@@ -1,4 +1,4 @@
-"""The port's four kernels as ``torch.library`` custom ops.
+"""The port's five kernels as ``torch.library`` custom ops.
 
 Each op is one node to the dispatcher, to autograd and to ``torch.export``,
 which traces on fake tensors that have no storage and so cannot follow a
@@ -14,7 +14,10 @@ checks that read ``data_ptr()`` stay in the launches.
 - ``sln_amodal::roi_align_backward`` — ``csrc/roi_align_backward.cu`` /
   ``roi_align.pyramid_roi_align_backward_plain``;
 - ``sln_amodal::window_attention`` — ``csrc/window_attention.cu`` /
-  ``window_attention.window_attention_plain`` (inference only: no backward).
+  ``window_attention.window_attention_plain`` (inference only: no backward);
+- ``sln_amodal::resize_bilinear_u8`` — ``csrc/resize_bilinear.cu`` /
+  ``resize.resize_bilinear_u8_plain`` (the packed frames' device picks the
+  implementation; their table stays on the host).
 
 Importing ``sln_amodal_tpu_torch.ops`` registers them (``ops/__init__.py``),
 so a saved exported program that holds them loads after that import.
@@ -28,6 +31,8 @@ import torch
 
 from .nms import nms_sorted_batched_plain
 from .nms_cuda import launch_nms
+from .resize import resize_bilinear_u8_plain
+from .resize_cuda import launch_resize_bilinear
 from .roi_align import pyramid_roi_align_backward_plain, pyramid_roi_align_plain
 from .roi_align_cuda import launch_roi_align, launch_roi_align_backward
 from .window_attention import window_attention_plain
@@ -129,3 +134,19 @@ window_attention.register_kernel("cuda")(launch_window_attention)
 @window_attention.register_fake
 def _(qkv, table, heads, window, shift):
     return qkv.new_empty((*qkv.shape[:3], qkv.shape[3] // 3))
+
+
+# ------------------------------------------------------- squash resize --
+
+@torch.library.custom_op(f"{NAMESPACE}::resize_bilinear_u8", mutates_args=(),
+                         device_types="cpu")
+def resize_bilinear_u8(packed: Tensor, table: Tensor, size: int) -> Tensor:
+    return resize_bilinear_u8_plain(packed, table, size)
+
+
+resize_bilinear_u8.register_kernel("cuda")(launch_resize_bilinear)
+
+
+@resize_bilinear_u8.register_fake
+def _(packed, table, size):
+    return packed.new_empty((table.shape[0], size, size, 3))

@@ -38,7 +38,7 @@ from .config import Config
 from .convert import init_params
 from .detect.detection import refine_detections
 from .infer import Detector, PendingDetect
-from .utils.image import mold_inputs
+from .utils.image import pil_molded
 
 # the runtime calls that enqueue work on the device, as torch.profiler
 # names them
@@ -61,10 +61,13 @@ def make_detector(cfg: Config, seed: int, device) -> Detector:
 
 def eager_dispatch(det: Detector, images) -> PendingDetect:
     """The eager graph, ``SLNAmodal.infer_detect_only`` called directly, on
-    the inputs ``det.dispatch`` gives its program (the uint8 upload, then
-    the mean subtracted on the card): a ``PendingDetect`` that
-    ``det.collect`` takes. The reference of the captured graph."""
-    molded, windows = mold_inputs(images, det.config)
+    the frames ``det.dispatch`` gives its program, here resized by PIL on
+    the host (uploaded as uint8, then the mean subtracted on the card): a
+    ``PendingDetect`` that ``det.collect`` takes. The reference of the
+    captured graph and of the device resize before it."""
+    size = det.config.image_size
+    molded = pil_molded(images, size)
+    windows = np.array([(0, 0, size, size)] * len(images))
     x = torch.from_numpy(molded).to(det.device).to(torch.float32) - det._mean[0]
     out = det.model.infer_detect_only(
         x, torch.as_tensor(windows, dtype=torch.float32, device=det.device))
@@ -171,9 +174,10 @@ def main() -> int:
               for _ in range(args.batch)]
     det.detect(images)                     # warm-up and capture
 
-    molded, windows = mold_inputs(images, cfg)
-    x = torch.from_numpy(molded).to(dev).to(torch.float32) - det._mean[0]
-    w = torch.as_tensor(windows, dtype=torch.float32, device=dev)
+    x = torch.from_numpy(pil_molded(images, cfg.image_size)).to(dev).to(torch.float32) \
+        - det._mean[0]
+    w = torch.tensor([(0, 0, cfg.image_size, cfg.image_size)] * len(images),
+                     dtype=torch.float32, device=dev)
 
     def eager():
         return eager_dispatch(det, images)

@@ -5,11 +5,13 @@ reference's numerics:
 
 - images are squash-resized to ``image_size`` squared with PIL bilinear
   (the reference's ``scipy.misc.imresize`` is PIL underneath); training
-  samples take the same resize (``resize_image``), nearest-neighbour zoomed
+  samples take that resize (``resize_image``), nearest-neighbour zoomed
   layer masks (``resize_layer_masks``) and the mean pixel subtracted on the
   host (``mold_image``);
-- the mean pixel is subtracted on the device, after a uint8 upload
-  (:class:`sln_amodal_tpu_torch.infer.Detector`);
+- inference frames are packed raw (``mold_inputs``) and squash-resized on
+  the device by the op ``sln_amodal::resize_bilinear_u8``, bit-equal to
+  PIL's bilinear (``ops/resize.py``); the mean pixel is subtracted there
+  too (:class:`sln_amodal_tpu_torch.infer.Detector`);
 - ``unmold_crop`` reproduces ``scipy.misc.imresize`` on a float mask:
   **bytescale by the mask's own min/max to uint8**, PIL bilinear resize,
   /255, threshold 0.5 — a relative threshold, a quirk masks depend on;
@@ -78,11 +80,26 @@ def mold_image(image: np.ndarray, mean_pixel) -> np.ndarray:
 
 
 def mold_inputs(images: List[np.ndarray], config):
-    """Raw images -> (resized [N, S, S, 3] uint8, windows [N, 4])."""
+    """Raw [H, W, 3] images -> (packed, table, windows [N, 4]): the frames'
+    uint8 bytes back to back, and per frame its (byte offset, height,
+    width) as int64 [N, 3], as the op ``sln_amodal::resize_bilinear_u8``
+    takes them to squash-resize each to ``config.image_size`` squared."""
     size = config.image_size
-    molded = [pil_resize_uint8(im.astype(np.uint8), (size, size)) for im in images]
+    frames = [np.asarray(im, np.uint8) for im in images]
+    if any(f.ndim != 3 or f.shape[2] != 3 for f in frames):
+        raise ValueError(f"images must be [H, W, 3], got {[f.shape for f in frames]}")
+    nbytes = np.array([f.size for f in frames], np.int64)
+    table = np.stack([np.cumsum(nbytes) - nbytes,
+                      [f.shape[0] for f in frames], [f.shape[1] for f in frames]], 1)
+    packed = np.concatenate([f.reshape(-1) for f in frames])
     windows = [(0, 0, size, size)] * len(images)
-    return np.stack(molded), np.array(windows)
+    return packed, table.astype(np.int64), np.array(windows)
+
+
+def pil_molded(images: List[np.ndarray], size: int) -> np.ndarray:
+    """The frames the device resize makes of ``images``, made by PIL on the
+    host: [N, size, size, 3] uint8, the reference the op is held to."""
+    return np.stack([pil_resize_uint8(np.asarray(im, np.uint8), (size, size)) for im in images])
 
 
 def unmold_crop(mask: np.ndarray, bbox) -> np.ndarray:

@@ -14,6 +14,7 @@ import torch
 from sln_amodal_tpu_torch.config import Config
 from sln_amodal_tpu_torch.convert import init_params
 from sln_amodal_tpu_torch.infer import Detector
+from sln_amodal_tpu_torch.utils.image import mold_inputs, pil_molded
 from sln_amodal_tpu_torch.ops.nms import nms_sorted_batched_plain
 from sln_amodal_tpu_torch.ops.nms_cuda import NMS_KERNEL, nms_sorted_batched
 from sln_amodal_tpu_torch.ops.roi_align import (pyramid_roi_align_backward_plain,
@@ -21,6 +22,7 @@ from sln_amodal_tpu_torch.ops.roi_align import (pyramid_roi_align_backward_plain
 from sln_amodal_tpu_torch.ops.roi_align_cuda import (
     ROI_ALIGN_BACKWARD_KERNEL, ROI_ALIGN_KERNEL, level_scale_reciprocal,
     pyramid_roi_align, pyramid_roi_align_backward)
+from sln_amodal_tpu_torch.ops.resize_cuda import RESIZE_KERNEL, resize_bilinear_u8
 from sln_amodal_tpu_torch.ops.window_attention import window_attention_plain
 from sln_amodal_tpu_torch.ops.window_attention_cuda import (WINDOW_ATTENTION_KERNEL,
                                                             window_attention)
@@ -327,7 +329,8 @@ def test_roi_align_autograd_uses_both_kernels(cuda_device):
 
 OP_CASES = [("nms_sorted_batched", 0), ("nms_sorted_batched", 1), ("roi_align", 0),
             ("roi_align", 1), ("roi_align_backward", 0), ("roi_align_backward", 1),
-            ("window_attention", 0), ("window_attention", 1)]
+            ("window_attention", 0), ("window_attention", 1), ("resize_bilinear_u8", 0),
+            ("resize_bilinear_u8", 1)]
 
 
 @pytest.mark.parametrize("name,case", OP_CASES)
@@ -503,14 +506,14 @@ def seeded_images(seed, n=2):
 
 def eager_outputs(det, images, replica=0):
     """The model's eager graph (``infer_detect_only`` called directly) on
-    the inputs ``dispatch`` gives the program."""
-    from sln_amodal_tpu_torch.utils.image import mold_inputs
+    the frames ``dispatch`` gives the program, resized by PIL on the host."""
+    from sln_amodal_tpu_torch.utils.image import pil_molded
 
-    molded, windows = mold_inputs(images, det.config)
+    size = det.config.image_size
     dev = det._mean[replica].device
-    x = torch.from_numpy(molded).to(dev).to(torch.float32) - det._mean[replica]
+    x = torch.from_numpy(pil_molded(images, size)).to(dev).to(torch.float32) - det._mean[replica]
     return det._replicas[replica].infer_detect_only(
-        x, torch.as_tensor(windows, dtype=torch.float32, device=dev))
+        x, torch.tensor([(0, 0, size, size)] * len(images), dtype=torch.float32, device=dev))
 
 
 def assert_bit_equal(got, want):
@@ -846,3 +849,73 @@ def test_graphed_swin_detect_is_bit_equal_to_eager(cuda_device, dtype):
         assert WINDOW_ATTENTION_KERNEL.launches == before + 48 + 24 * seed
         assert_bit_equal(got, eager_outputs(det, images))
         assert det.programs[0].captures == 1
+
+
+# -------------------------------------------------------- the squash resize --
+
+# (height, width): the benchmark's COCO sizes, the model's own frame, D2SA's
+RESIZE_SIZES = [(480, 640), (640, 480), (427, 640), (640, 427), (375, 500), (500, 375),
+                (1024, 1024), (1440, 1920)]
+
+
+def resized_on_card(images, size, device):
+    """``images`` packed as ``Detector.dispatch`` packs them, resized by the
+    kernel: (frames, kernel launches of the call)."""
+    packed, table, _ = mold_inputs(images, Config(image_size=size))
+    before = RESIZE_KERNEL.launches
+    frames = resize_bilinear_u8(torch.from_numpy(packed).to(device), torch.from_numpy(table),
+                                size)
+    torch.cuda.synchronize()
+    return frames, RESIZE_KERNEL.launches - before
+
+
+@pytest.mark.parametrize("h,w", RESIZE_SIZES)
+def test_resize_kernel_is_pils(cuda_device, h, w):
+    """One frame to 1024 square, bit-equal to the host's PIL; a repeat
+    launch bit-equal; one launch a call."""
+    image = np.random.RandomState(h + w).randint(0, 256, (h, w, 3), np.uint8)
+    got, launches = resized_on_card([image], 1024, cuda_device)
+    again, _ = resized_on_card([image], 1024, cuda_device)
+    assert launches == 1 and got.device.type == "cuda" and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.cpu().numpy(), pil_molded([image], 1024))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("size", [1024, 100])
+def test_resize_kernel_mixed_batch_in_one_launch(cuda_device, size):
+    """The eight sizes in one launch, each frame PIL's; at 100 square a row
+    is not whole 16-byte stores."""
+    rng = np.random.RandomState(size)
+    images = [rng.randint(0, 256, (h, w, 3), np.uint8) for h, w in RESIZE_SIZES]
+    got, launches = resized_on_card(images, size, cuda_device)
+    assert launches == 1 and tuple(got.shape) == (8, size, size, 3)
+    np.testing.assert_array_equal(got.cpu().numpy(), pil_molded(images, size))
+    assert torch.equal(got, resized_on_card(images, size, cuda_device)[0])
+
+
+def test_resize_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    packed = torch.zeros(4 * 5 * 3, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="CPU int64"):
+        resize_bilinear_u8(packed, torch.tensor([[0, 4, 5]], device=cuda_device), 8)
+    with pytest.raises(ValueError, match="does not fit"):
+        resize_bilinear_u8(packed, torch.tensor([[1, 4, 5]]), 8)
+
+
+def test_graphed_detect_on_off_size_frames_is_eager_on_pil_frames(cuda_device):
+    """Off-size frames: the kernel resizes them in one launch a dispatch
+    (``detector.resize`` counts it), and the graphed detect equals the
+    eager graph fed PIL's frames, bit for bit, first call and replay."""
+    from sln_amodal_tpu_torch.utils import profiling
+
+    det = graph_detector(cuda_device, "bfloat16")
+    rng = np.random.RandomState(9)
+    for sizes in (((96, 160), (150, 100)), ((128, 128), (61, 250))):
+        images = [rng.randint(0, 256, (h, w, 3), np.uint8) for h, w in sizes]
+        profiling.clear()
+        before = RESIZE_KERNEL.launches
+        got = det.dispatch(images).out
+        assert RESIZE_KERNEL.launches == before + 1
+        (span,) = [s for s in profiling.spans() if s.name == "detector.resize"]
+        assert span.counts == {"images": 2, "launches": 1}
+        assert_bit_equal(got, eager_outputs(det, images))
+    assert det.programs[0].captures == 1

@@ -32,7 +32,8 @@ def test_opcheck_on_cpu(name, case):
 
 def test_ops_live_in_one_namespace():
     assert library.NAMESPACE == "sln_amodal"
-    for name in ("nms_sorted_batched", "roi_align", "roi_align_backward", "window_attention"):
+    for name in ("nms_sorted_batched", "roi_align", "roi_align_backward", "window_attention",
+                 "resize_bilinear_u8"):
         op = getattr(torch.ops.sln_amodal, name).default
         assert torch._C._dispatch_has_kernel_for_dispatch_key(op.name(), "CPU")
         assert torch._C._dispatch_has_kernel_for_dispatch_key(op.name(), "CUDA")

@@ -258,12 +258,13 @@ def test_detect_records_its_request_in_order(detector, dataset):
     assert {s.request for s in spans} == {first, first + 1}
     mine = sorted((s for s in spans if s.request == first), key=lambda s: s.start_ns)
     assert [s.name for s in mine] == [
-        "detector.dispatch", "detector.mold", "detector.upload", "detector.replay",
-        "detector.collect", "detector.wait", "detector.unmold", "detector.unmold"]
+        "detector.dispatch", "detector.mold", "detector.upload", "detector.resize",
+        "detector.replay", "detector.collect", "detector.wait", "detector.unmold",
+        "detector.unmold"]
     parents = {s.name: s.parent for s in mine}
     assert parents["detector.dispatch"] is None and parents["detector.collect"] is None
-    assert {parents[n] for n in ("detector.mold", "detector.upload", "detector.replay")} == {
-        "detector.dispatch"}
+    assert {parents[n] for n in ("detector.mold", "detector.upload", "detector.resize",
+                                 "detector.replay")} == {"detector.dispatch"}
     assert {parents[n] for n in ("detector.wait", "detector.unmold")} == {
         "detector.collect"}
     named = {s.name: s for s in mine}
@@ -271,8 +272,10 @@ def test_detect_records_its_request_in_order(detector, dataset):
     assert wait.end_ns - wait.start_ns <= collect.end_ns - collect.start_ns
     assert named["detector.dispatch"].counts == {"images": 2}
     assert named["detector.collect"].counts == {"images": 2}
-    # two uint8 frames and two float32 windows up; detections and masks down
+    # two raw uint8 frames and two float32 windows up; detections and masks down
     assert named["detector.upload"].counts == {"bytes": 2 * 64 * 64 * 3 + 2 * 4 * 4}
+    # on the CPU the op's plain path resizes: no kernel launch
+    assert named["detector.resize"].counts == {"images": 2, "launches": 0}
     assert named["detector.wait"].counts["bytes"] > 0
     unmolds = by_name(mine, "detector.unmold")
     assert all(s.counts["detections"] >= 0 for s in unmolds)
@@ -304,7 +307,9 @@ def test_mesh_dispatch_records_one_upload_and_replay(biased_template, dataset):
     spans = profiling.spans()
     assert [len(by_name(spans, n)) for n in ("detector.upload", "detector.replay",
                                              "detector.unmold")] == [1, 1, 3]
-    assert by_name(spans, "detector.upload")[0].counts == {"bytes": 4 * 64 * 64 * 3 + 4 * 16}
+    # the pad row repeats the last raw image's table row: its bytes go up once
+    assert by_name(spans, "detector.upload")[0].counts == {"bytes": 3 * 64 * 64 * 3 + 4 * 16}
+    assert by_name(spans, "detector.resize")[0].counts == {"images": 4, "launches": 0}
 
 
 def test_predict_records_one_encode_per_image_under_its_drain(detector, dataset):

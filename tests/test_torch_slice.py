@@ -116,10 +116,12 @@ def test_cpu_detector_never_captures(detections, monkeypatch):
         port = Detector(Config(**CFG), params_from_jax(detecting_variables()), device="cpu")
         pending = port.dispatch(images)
         got = port.collect(pending)
-        molded, windows = infer.image_utils.mold_inputs(images, port.config)
+        # the eager model on PIL's frames: the device resize equals PIL's
+        size = port.config.image_size
+        molded = infer.image_utils.pil_molded(images, size)
         eager = port.model.infer_detect_only(
             torch.from_numpy(molded).to(torch.float32) - port._mean[0],
-            torch.as_tensor(windows, dtype=torch.float32))
+            torch.tensor([(0, 0, size, size)] * len(images), dtype=torch.float32))
     finally:
         torch.set_num_threads(threads)
     assert [p.captures for p in port.programs] == [0] and port.programs[0].keys() == []

@@ -44,7 +44,8 @@ def library_op_samples(device, seed=0):
     ``ops/library.py`` on ``device`` for ``torch.library.opcheck`` (small
     shapes; RoIAlign levels that require a gradient, float32, float64 and
     bfloat16; window attention on shifted and unshifted grids, float32 and
-    bfloat16: the dtypes its CUDA kernel takes)."""
+    bfloat16: the dtypes its CUDA kernel takes; the squash resize on frames
+    packed on ``device`` with their table on the host, up and down)."""
     rng = np.random.RandomState(seed)
     gen = torch.Generator().manual_seed(seed)
 
@@ -89,8 +90,18 @@ def library_op_samples(device, seed=0):
 
     attention = [attention_case(torch.float32, 1, 14, 7, 2, 3),
                  attention_case(torch.bfloat16, 2, 7, 14, 1, 0)]
+    def resize_case(sizes, size):
+        frames = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in sizes]
+        nbytes = np.array([f.size for f in frames])
+        table = np.stack([np.cumsum(nbytes) - nbytes, [h for h, _ in sizes],
+                          [w for _, w in sizes]], 1)
+        packed = np.concatenate([f.reshape(-1) for f in frames])
+        return ((torch.from_numpy(packed).to(device), torch.from_numpy(table.astype(np.int64)),
+                 size), {})
+
+    resize = [resize_case([(12, 20), (30, 9)], 16), resize_case([(16, 16)], 16)]
     return {"nms_sorted_batched": nms, "roi_align": roi, "roi_align_backward": backward,
-            "window_attention": attention}
+            "window_attention": attention, "resize_bilinear_u8": resize}
 
 
 @pytest.fixture(scope="module", autouse=True)
