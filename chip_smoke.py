@@ -840,7 +840,7 @@ def main_path(dev, dtype="float32", batch=2):
     pending = det.dispatch(images)         # warm-up and capture, then the replay
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t
-    results, raw = det.collect(pending), pending.out
+    results, raw = det.collect(pending), pending.out[0]
     peak = torch.cuda.max_memory_allocated(dev)
     # what the graph keeps: its memory pool and static buffers (the
     # warm-up's cached blocks released)
@@ -863,10 +863,10 @@ def main_path(dev, dtype="float32", batch=2):
         eager_calls += 1
         return eager_dispatch(det, imgs)
 
-    if not outputs_equal(raw, eager_of(images).out):
+    if not outputs_equal(raw, eager_of(images).out[0]):
         raise AssertionError(f"{dtype} batch {batch}: the graphed detect differs from eager")
     for i, other in enumerate(sets[1:]):
-        if not outputs_equal(det.dispatch(other).out, eager_of(other).out):
+        if not outputs_equal(det.dispatch(other).out[0], eager_of(other).out[0]):
             raise AssertionError(f"{dtype} batch {batch}: replay {i + 1} differs from eager")
     in_flight = [det.dispatch(other) for other in sets[1:3]]
     for other, got in zip(sets[1:3], [det.collect(p) for p in in_flight]):
@@ -1031,19 +1031,19 @@ def swin_detect(dev, dtype="bfloat16"):
                              f"launches {captured}: one warm-up and one capture of {blocks}")
     eager = eager_dispatch(det, sets[0])
     eager_launches = kernel.launches - captured
-    if eager_launches != blocks or not outputs_equal(pending.out, eager.out):
+    if eager_launches != blocks or not outputs_equal(pending.out[0], eager.out[0]):
         raise AssertionError(f"swin detect: eager launches {eager_launches}, or the graphed "
                              "detect differs from eager")
-    raw = pending.out
+    raw = pending.out[0]
     if not (torch.isfinite(raw.detections).all() and torch.isfinite(raw.masks).all()):
         raise AssertionError("swin detect: non-finite outputs")
     detections = len(det.collect(pending)[0]["scores"])
     host = []
     for i, other in enumerate(sets[1:]):
         before = kernel.launches
-        got = det.dispatch(other).out
+        got = det.dispatch(other).out[0]
         host.append(kernel.launches - before)
-        if not outputs_equal(got, eager_dispatch(det, other).out):
+        if not outputs_equal(got, eager_dispatch(det, other).out[0]):
             raise AssertionError(f"swin detect: replay {i + 1} differs from eager")
     before = kernel.launches
     by_kernel = device_kernels(lambda: det.dispatch(sets[0]), 3, expect=(WINDOW_KERNEL,))

@@ -1,15 +1,15 @@
 """High-level inference API: the reference's ``MaskRCNN.detect`` as a host
-wrapper around :class:`~sln_amodal_tpu_torch.models.sln.SLNAmodal`.
+wrapper around one device program per device.
 
 The host packs the raw frames (``utils/image.py::mold_inputs``) and
 uploads them; the card squash-resizes them to the model's square frame
 (``sln_amodal::resize_bilinear_u8``, bit-equal to PIL's bilinear) and
-subtracts the mean pixel. The host unmolds outputs (box rescale, mask
-paste).
+runs :class:`DeviceProgram` (the mean pixel subtracted, then the model).
+The host unmolds outputs (box rescale, mask paste).
 On the card the device program runs as one captured CUDA graph per shape
-(``compiled.py``), as the JAX package runs it as one jitted program. With a
-mesh (``parallel/mesh.py``) each batch is split over its devices, one
-replica of the model on each.
+(``compiled.py``), as the JAX package runs it as one jitted program. Each
+batch is split over the detector's devices, one program on each: one
+device, or a mesh's (``parallel/mesh.py``).
 
 Each ``dispatch`` is a request, numbered from 0 per ``Detector``; its
 spans (``utils/profiling.py``) carry that id: ``detector.dispatch`` with
@@ -24,6 +24,7 @@ launching stream (in a pipelined loop, the next batch's too), then copies.
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -39,13 +40,12 @@ from .utils import profiling
 
 
 class PendingDetect(NamedTuple):
-    """An in-flight detect batch: host inputs + device outputs (with a
-    mesh, a list of each device's outputs, pad rows included) and the
-    dispatch's request id."""
+    """An in-flight detect batch: host inputs, the list of each device's
+    outputs (pad rows included) and the dispatch's request id."""
 
     images: List[np.ndarray]
     windows: np.ndarray
-    out: Any
+    out: List[Any]
     request: Optional[int] = None
 
 
@@ -65,15 +65,26 @@ def _frame_blocks(packed: np.ndarray, table: np.ndarray, windows: np.ndarray, de
     return blocks
 
 
-def _program(model, mean: torch.Tensor, detect_only: bool):
-    """The device program of one replica: uint8 images and float32 windows
-    in, the model's outputs out."""
-    run = model.infer_detect_only if detect_only else model.infer
+class DeviceProgram(torch.nn.Module):
+    """The device program of one replica, which :class:`Detector` captures
+    and ``serve.export_detector`` exports: uint8 frames [B, S, S, 3] and
+    float32 windows [B, 4] in, the mean pixel subtracted, the model's
+    ``infer_detect_only`` (``detect_only``) or ``infer`` (the GLM global
+    label too), a plain tuple out whose fields ``outputs`` names."""
 
-    def program(images_u8: torch.Tensor, windows: torch.Tensor):
-        return run(images_u8.to(torch.float32) - mean, windows)
+    def __init__(self, model, detect_only: bool):
+        from .models.sln import DetectOutputs, InferenceOutputs
 
-    return program
+        super().__init__()
+        self.model = model
+        self.detect_only = detect_only
+        self.outputs = (DetectOutputs if detect_only else InferenceOutputs)._fields
+        self.register_buffer("mean", torch.tensor(model.config.mean_pixel, dtype=torch.float32,
+                                                  device=model.anchors.device))
+
+    def forward(self, images_u8: torch.Tensor, windows: torch.Tensor):
+        run = self.model.infer_detect_only if self.detect_only else self.model.infer
+        return tuple(run(images_u8.to(torch.float32) - self.mean, windows))
 
 
 class Detector:
@@ -87,22 +98,23 @@ class Detector:
     ``state_dict`` has the reference layout (``convert.params_from_jax`` or
     ``convert.init_params``). ``detect_only=True`` (default) runs the graph
     for the ``detect()`` contract (rois/class_ids/scores/masks); pass False
-    to also compute the GLM global label (``last_global_label``). ``device``
-    is "cuda" by default and raises when no card is present, unless
-    ``device="cpu"`` is passed.
+    to also compute the GLM global label (``last_global_label``, a row per
+    real image). ``device`` is "cuda" by default and raises when no card is
+    present, unless ``device="cpu"`` is passed.
 
     ``mesh`` (a tuple of devices, ``parallel.mesh.make_mesh``) turns on
     data-parallel serving and replaces ``device``: one replica of the model
-    on each device of the mesh (two on a device listed twice), and each
-    ``dispatch`` pads a ragged batch to a multiple of the mesh size by
-    repeating its last raw image, then uploads, resizes and launches each
-    device's row block from this thread; ``collect`` walks only the real
-    images.
+    on each device of the mesh (two on a device listed twice). Without a
+    mesh the detector runs on a device list of one. Each ``dispatch`` pads
+    the request to a multiple of the device count (a served detector, to
+    its fixed ``batch``) by repeating its last raw image's table row, then
+    uploads, resizes and launches each device's row block from this thread;
+    ``collect`` walks only the real images.
 
-    On a card, each replica's program (the mean subtraction and the model's
-    ``infer_detect_only`` or ``infer``) is captured as a CUDA graph at the
-    first ``dispatch`` of each shape and replayed after that
-    (``compiled.CapturedProgram``, one per replica in ``programs``; the
+    On a card, each device's program (a :class:`DeviceProgram`, or a
+    loaded artifact's) is captured as a CUDA graph at the first
+    ``dispatch`` of each shape and replayed after that
+    (``compiled.CapturedProgram``, one per device in ``programs``; the
     graphs of one ``Detector`` share a memory pool). A capture that fails
     raises. On the CPU the program runs eagerly. ``SLNAmodal.infer`` /
     ``infer_detect_only``, called directly, stay the eager graph.
@@ -115,53 +127,58 @@ class Detector:
         # that runs without the model code
         from .models.sln import SLNAmodal
 
-        self.config = config
-        self.mesh = None if mesh is None else make_mesh(mesh)
-        devices = [resolve_device(device)] if self.mesh is None else list(self.mesh)
-        self._replicas = []
+        mesh = make_mesh(mesh) if mesh is not None else None
+        devices = list(mesh or [resolve_device(device)])
+        programs = []
         for dev in devices:
             model = SLNAmodal(config, device=dev)
             model.load_state_dict(state_dict, strict=True)
             # the weights never change here: cast them to the compute dtype
             # once, not at every use
-            self._replicas.append(model.cast_weights_to_compute_dtype())
-        self.device, self.model = devices[0], self._replicas[0]
-        self.detect_only = detect_only
-        self.last_global_label = None
-        self._mean = [torch.tensor(config.mean_pixel, dtype=torch.float32, device=dev)
-                      for dev in devices]
-        graphs = CudaGraphs()
-        self.programs = [
-            CapturedProgram(_program(model, mean, detect_only), graphs)
-            for model, mean in zip(self._replicas, self._mean)]
+            programs.append(DeviceProgram(model.cast_weights_to_compute_dtype(), detect_only))
+        self._setup(config, devices, programs, detect_only, programs[0].outputs, mesh=mesh)
+        self.model = programs[0].model
 
-    def _launch(self, replica: int, images_u8: torch.Tensor, windows: torch.Tensor):
-        """The program of replica ``replica`` on its block (uint8 images,
-        float32 windows, on its device): a graph replay on a card."""
-        key = (self.config.compute_dtype, self.detect_only)
-        return self.programs[replica](key, images_u8, windows)
+    def _setup(self, config: Config, devices: List[torch.device], programs: Sequence,
+               detect_only: bool, outputs: Sequence[str], batch: Optional[int] = None,
+               mesh=None):
+        """The initialiser of both constructors: one program per device (a
+        tuple of the fields ``outputs`` names out); ``batch``, the fixed
+        batch each dispatch pads to (None: a multiple of the devices)."""
+        self.config = config
+        self.mesh = mesh
+        self.devices = devices
+        self.device = devices[0]
+        self.detect_only = detect_only
+        self.batch = batch
+        self.last_global_label = None
+        graphs = CudaGraphs()
+        self.programs = [CapturedProgram(p, graphs) for p in programs]
+        self._outputs = collections.namedtuple("DeviceOutputs", list(outputs))
+        self._key = (config.compute_dtype, detect_only)
 
     dispatches = 0      # dispatch calls so far: the next request id
 
     def dispatch(self, images: List[np.ndarray]) -> PendingDetect:
         """Pack, upload, resize on the device and launch the device work
         without waiting for it (CUDA launches are asynchronous)."""
+        if self.batch is not None and len(images) > self.batch:
+            raise ValueError(f"request batch {len(images)} > artifact batch {self.batch}; "
+                             "split the request or re-export with a larger batch")
         request = self.dispatches
         self.dispatches += 1
         with profiling.span("detector.dispatch", request, images=len(images)):
             with profiling.span("detector.mold"):
                 packed, table, windows = image_utils.mold_inputs(images, self.config)
-            if self.mesh is not None:
-                # splitting over the mesh needs a divisible batch: repeat the
-                # last raw image (its table row); collect walks only the real
-                # images
-                pad = (-len(images)) % len(self.mesh)
-                if pad:
-                    table = np.concatenate([table, np.repeat(table[-1:], pad, axis=0)])
-                    windows = np.concatenate([windows, np.repeat(windows[-1:], pad, axis=0)])
-            devices = [self.device] if self.mesh is None else list(self.mesh)
+            # the devices split the rows evenly: pad rows repeat the last
+            # raw image's table row (a device uploads its frames once);
+            # collect walks only the real images
+            n = len(self.devices)
+            pad = (self.batch or -(-len(images) // n) * n) - len(images)
+            table, windows = (np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+                              for a in (table, windows))
             with profiling.span("detector.upload") as upload:
-                blocks = _frame_blocks(packed, table, windows, devices)
+                blocks = _frame_blocks(packed, table, windows, self.devices)
                 upload.count(bytes=sum(raw.nbytes + w.nbytes for raw, _, w in blocks))
             with profiling.span("detector.resize", images=len(table)) as resize:
                 launched = RESIZE_KERNEL.launches
@@ -169,54 +186,53 @@ class Detector:
                           for raw, rows, _ in blocks]
                 resize.count(launches=RESIZE_KERNEL.launches - launched)
             with profiling.span("detector.replay"):
-                out = [self._launch(i, f, block[2])
-                       for i, (f, block) in enumerate(zip(frames, blocks))]
-            return PendingDetect(images, windows, out[0] if self.mesh is None else out,
-                                 request)
+                out = [self._outputs(*program(self._key, f, block[2]))
+                       for program, f, block in zip(self.programs, frames, blocks)]
+            return PendingDetect(images, windows, out, request)
 
     def _fetch(self, pending: PendingDetect):
+        """(detections, masks) as host arrays of every row, pad rows
+        included; the real images' GLM global label to
+        ``last_global_label``."""
         def host(field):
-            if self.mesh is None:
-                return getattr(pending.out, field).cpu().numpy()
-            return np.concatenate([getattr(o, field).cpu().numpy() for o in pending.out])
+            arrays = [getattr(o, field).cpu().numpy() for o in pending.out]
+            # one device: its array as it is, no copy
+            return arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
 
         with profiling.span("detector.wait") as span:
             if not self.detect_only:
-                self.last_global_label = host("global_label")
+                self.last_global_label = host("global_label")[:len(pending.images)]
             detections, masks = host("detections"), host("masks")
             span.count(bytes=detections.nbytes + masks.nbytes)
         return detections, masks
 
-    def collect(self, pending: PendingDetect) -> List[Dict[str, np.ndarray]]:
-        """Wait for a dispatched batch and unmold it to the reference's
-        per-image output contract."""
+    def _collect(self, pending: PendingDetect, unmold, fields) -> List[Dict[str, Any]]:
+        """Wait for a dispatched batch and unmold each real image with
+        ``unmold``; ``fields(image, masks)`` gives a result's entries beside
+        rois, class_ids and scores."""
         with profiling.span("detector.collect", pending.request, images=len(pending.images)):
             detections, masks = self._fetch(pending)
             results = []
             for i, image in enumerate(pending.images):
                 with profiling.span("detector.unmold") as span:
-                    rois, class_ids, scores, full_masks = image_utils.unmold_detections(
+                    rois, class_ids, scores, image_masks = unmold(
                         detections[i], masks[i], image.shape, pending.windows[i])
                     span.count(detections=len(rois))
-                results.append({"rois": rois, "class_ids": class_ids,
-                                "scores": scores, "masks": full_masks})
+                results.append({"rois": rois, "class_ids": class_ids, "scores": scores,
+                                **fields(image, image_masks)})
             return results
+
+    def collect(self, pending: PendingDetect) -> List[Dict[str, np.ndarray]]:
+        """Wait for a dispatched batch and unmold it to the reference's
+        per-image output contract."""
+        return self._collect(pending, image_utils.unmold_detections,
+                             lambda image, masks: {"masks": masks})
 
     def collect_crops(self, pending: PendingDetect) -> List[Dict[str, Any]]:
         """Like :meth:`collect`, with masks as binary box crops (``"crops"``,
         a list of [h, w] uint8) instead of pasted [H, W, N] frames."""
-        with profiling.span("detector.collect", pending.request, images=len(pending.images)):
-            detections, masks = self._fetch(pending)
-            results = []
-            for i, image in enumerate(pending.images):
-                with profiling.span("detector.unmold") as span:
-                    rois, class_ids, scores, crops = image_utils.unmold_detections_parts(
-                        detections[i], masks[i], image.shape, pending.windows[i])
-                    span.count(detections=len(rois))
-                results.append({"rois": rois, "class_ids": class_ids,
-                                "scores": scores, "crops": crops,
-                                "image_shape": image.shape})
-            return results
+        return self._collect(pending, image_utils.unmold_detections_parts,
+                             lambda image, crops: {"crops": crops, "image_shape": image.shape})
 
     def detect(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """images: list of [H, W, 3] uint8 arrays (any sizes).

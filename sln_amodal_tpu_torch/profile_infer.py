@@ -68,10 +68,10 @@ def eager_dispatch(det: Detector, images) -> PendingDetect:
     size = det.config.image_size
     molded = pil_molded(images, size)
     windows = np.array([(0, 0, size, size)] * len(images))
-    x = torch.from_numpy(molded).to(det.device).to(torch.float32) - det._mean[0]
+    x = torch.from_numpy(molded).to(det.device).to(torch.float32) - det.programs[0].fn.mean
     out = det.model.infer_detect_only(
         x, torch.as_tensor(windows, dtype=torch.float32, device=det.device))
-    return PendingDetect(images=images, windows=windows, out=out)
+    return PendingDetect(images=images, windows=windows, out=[out])
 
 
 def stage_times(det: Detector, x: torch.Tensor, windows: torch.Tensor) -> dict:
@@ -175,7 +175,7 @@ def main() -> int:
     det.detect(images)                     # warm-up and capture
 
     x = torch.from_numpy(pil_molded(images, cfg.image_size)).to(dev).to(torch.float32) \
-        - det._mean[0]
+        - det.programs[0].fn.mean
     w = torch.tensor([(0, 0, cfg.image_size, cfg.image_size)] * len(images),
                      dtype=torch.float32, device=dev)
 

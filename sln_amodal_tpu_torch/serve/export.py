@@ -10,10 +10,10 @@ exports the jitted program as StableHLO. Here the artifact is a directory::
     manifest.json   format_version, config, batch, detect_only, device_type,
                     compute_dtype, torch_version, mesh_size, outputs
 
-The program is the graph :class:`~sln_amodal_tpu_torch.infer.Detector`
-launches: uint8 resized images in, the mean pixel subtracted on the device,
-``infer_detect_only`` (``detect_only``) or ``infer`` (the GLM global label
-too), the outputs as a tuple named by ``outputs``. The NMS and RoIAlign
+The program is :class:`~sln_amodal_tpu_torch.infer.DeviceProgram`, the
+module :class:`Detector` captures: uint8 resized images in, the mean pixel
+subtracted on the device, ``infer_detect_only`` (``detect_only``) or
+``infer`` (the GLM global label too), a tuple named by ``outputs``. The NMS and RoIAlign
 kernels are in it as the custom ops of ``ops/library.py``, so the program
 launches the kernels on the card and runs their plain versions on the CPU;
 it is exported without decompositions, with the ATen ops the eager graph
@@ -28,7 +28,6 @@ exported on and refuses any other. The loading host needs the port's ops,
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import json
 import os
@@ -37,31 +36,14 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from .. import ops  # noqa: F401  (registers the kernels' custom ops before a load)
-from ..compiled import CapturedProgram, CudaGraphs
 from ..config import Config
 from ..device import resolve_device
-from ..infer import Detector, PendingDetect
+from ..infer import DeviceProgram, Detector
 from ..parallel.mesh import make_mesh
 
 MODEL_FILE = "model.pt2"
 MANIFEST_FILE = "manifest.json"
 FORMAT_VERSION = 1
-
-
-class _ServedGraph(torch.nn.Module):
-    """uint8 images and float32 windows in, the graph's outputs out (a
-    tuple): :class:`Detector`'s launch as one module."""
-
-    def __init__(self, model, detect_only: bool):
-        super().__init__()
-        self.model = model
-        self.detect_only = detect_only
-        self.register_buffer("mean", torch.tensor(model.config.mean_pixel, dtype=torch.float32,
-                                                  device=model.anchors.device))
-
-    def forward(self, images_u8: torch.Tensor, windows: torch.Tensor):
-        run = self.model.infer_detect_only if self.detect_only else self.model.infer
-        return tuple(run(images_u8.to(torch.float32) - self.mean, windows))
 
 
 def export_detector(
@@ -84,23 +66,19 @@ def export_detector(
     ``mesh`` (devices, ``parallel.mesh.make_mesh``) the artifact is the
     per-replica program at ``batch / len(mesh)``, exported on the mesh's
     first device, and loads over a mesh of the same size."""
-    from ..models.sln import DetectOutputs, InferenceOutputs, SLNAmodal
+    from ..models.sln import SLNAmodal
 
-    if mesh is not None:
-        mesh = make_mesh(mesh)
-        if batch % len(mesh):
-            raise ValueError(f"batch {batch} not divisible by mesh size {len(mesh)}")
-        device = mesh[0]
-    dev = resolve_device(device)
-    per_replica = batch // (len(mesh) if mesh is not None else 1)
-
+    devices = make_mesh(mesh) if mesh is not None else (resolve_device(device),)
+    if batch % len(devices):
+        raise ValueError(f"batch {batch} not divisible by mesh size {len(devices)}")
+    dev = devices[0]
     model = SLNAmodal(config, device=dev)
     model.load_state_dict(state_dict, strict=True)
-    model.cast_weights_to_compute_dtype()      # as Detector holds them
-    s = config.image_size
-    example = (torch.zeros((per_replica, s, s, 3), dtype=torch.uint8, device=dev),
-               torch.zeros((per_replica, 4), dtype=torch.float32, device=dev))
-    graph = _ServedGraph(model, detect_only)
+    # the weights in the compute dtype, as Detector holds them
+    graph = DeviceProgram(model.cast_weights_to_compute_dtype(), detect_only)
+    s, rows = config.image_size, batch // len(devices)
+    example = (torch.zeros((rows, s, s, 3), dtype=torch.uint8, device=dev),
+               torch.zeros((rows, 4), dtype=torch.float32, device=dev))
     with torch.no_grad():
         # one eager call first: the constants the graph makes at first use
         # (the bfloat16 resize weights, the box std devs) are then tensors
@@ -119,8 +97,8 @@ def export_detector(
         "device_type": dev.type,
         "compute_dtype": config.compute_dtype,
         "torch_version": torch.__version__,
-        "mesh_size": len(mesh) if mesh is not None else 1,
-        "outputs": list((DetectOutputs if detect_only else InferenceOutputs)._fields),
+        "mesh_size": len(devices),
+        "outputs": list(graph.outputs),
     }
     with open(os.path.join(out_dir, MANIFEST_FILE), "w") as f:
         json.dump(manifest, f, indent=2)
@@ -137,27 +115,11 @@ def _config_from_manifest(fields: dict) -> Config:
 
 
 class ServingDetector(Detector):
-    """A :class:`Detector` that runs a loaded artifact in place of the model.
-
-    Same ``dispatch`` / ``collect`` / ``collect_crops`` / ``detect`` API. A
-    request of fewer images than the artifact's batch is padded up by
-    repeating its last image (the pad rows are dropped before unmolding); a
-    larger one raises. With a mesh, each device runs the per-replica
-    program on its block of the batch. On a card each replica's program is
-    captured as a CUDA graph at its first ``dispatch`` and replayed after
-    that, as in :class:`Detector` (``programs``)."""
-
-    def __init__(self, config: Config, programs: Sequence, device: torch.device, batch: int,
-                 detect_only: bool, outputs: Sequence[str], mesh=None):
-        self.config = config
-        self.mesh = mesh
-        self.device = device
-        self.detect_only = detect_only
-        self.last_global_label = None
-        self.batch = batch
-        graphs = CudaGraphs()
-        self.programs = [CapturedProgram(p, graphs) for p in programs]
-        self._outputs = collections.namedtuple("ServedOutputs", list(outputs))
+    """A :class:`Detector` on a loaded artifact's program in place of the
+    model, with the artifact's ``batch`` as its fixed batch: a request of
+    fewer images is padded up by repeating its last image, a larger one
+    raises. ``load`` ends in ``Detector``'s initialiser; the rest is
+    :class:`Detector`'s (``programs``, the mesh, the captured graphs)."""
 
     @classmethod
     def load(cls, artifact_dir: str, device=None, mesh: Optional[Sequence] = None
@@ -171,17 +133,13 @@ class ServingDetector(Detector):
             manifest = json.load(f)
         kind = manifest["device_type"]
         mesh_size = int(manifest["mesh_size"])
-        if mesh_size > 1 and mesh is None:
+        if mesh is None and mesh_size > 1:
             mesh = ["cpu"] * mesh_size if kind == "cpu" else _first_cards(mesh_size)
-        if mesh is not None:
-            mesh = make_mesh(mesh)
-            if len(mesh) != mesh_size:
-                raise ValueError(f"the artifact was exported for a {mesh_size}-device mesh, "
-                                 f"got {len(mesh)} devices")
-            devices = list(mesh)
-        else:
-            devices = [resolve_device(device if device is not None else kind)]
-        devices = [_indexed(d) for d in devices]
+        mesh = make_mesh(mesh) if mesh is not None else None
+        devices = [_indexed(d) for d in mesh or [resolve_device(device or kind)]]
+        if len(devices) != mesh_size:
+            raise ValueError(f"the artifact was exported for a {mesh_size}-device mesh, "
+                             f"got {len(devices)} devices")
         if any(d.type != kind for d in devices):
             raise ValueError(f"the artifact was exported for {kind}; it does not run on "
                              f"{[str(d) for d in devices]}")
@@ -195,29 +153,11 @@ class ServingDetector(Detector):
                     from torch.export.passes import move_to_device_pass
                     program = move_to_device_pass(program, str(d))
                 modules[d] = program.module()
-        return cls(_config_from_manifest(manifest["config"]), [modules[d] for d in devices],
-                   devices[0], batch=int(manifest["batch"]),
-                   detect_only=bool(manifest["detect_only"]), outputs=manifest["outputs"],
-                   mesh=mesh)
-
-    def dispatch(self, images) -> PendingDetect:
-        if len(images) > self.batch:
-            raise ValueError(f"request batch {len(images)} > artifact batch {self.batch}; "
-                             "split the request or re-export with a larger batch")
-        return super().dispatch(images)
-
-    def _launch(self, replica: int, images_u8: torch.Tensor, windows: torch.Tensor):
-        """Replica ``replica``'s program on its block, padded up to the
-        per-replica batch by repeating the last row; the pad rows of the
-        outputs are dropped."""
-        rows = images_u8.shape[0]
-        pad = self.batch // len(self.programs) - rows
-        if pad:
-            images_u8 = torch.cat([images_u8, images_u8[-1:].expand(pad, *images_u8.shape[1:])])
-            windows = torch.cat([windows, windows[-1:].expand(pad, -1)])
-        out = self.programs[replica]((self.config.compute_dtype, self.detect_only),
-                                     images_u8, windows)
-        return self._outputs(*(o[:rows] for o in out))
+        served = cls.__new__(cls)
+        served._setup(_config_from_manifest(manifest["config"]), devices,
+                      [modules[d] for d in devices], bool(manifest["detect_only"]),
+                      manifest["outputs"], batch=int(manifest["batch"]), mesh=mesh)
+        return served
 
 
 def _indexed(device: torch.device) -> torch.device:

@@ -417,7 +417,8 @@ def test_mesh_detector_two_replicas_on_one_card(cuda_device):
     images = [rng.randint(0, 255, (128, 128, 3), np.uint8) for _ in range(3)]
     single = Detector(cfg, sd, device=cuda_device)
     mesh = Detector(cfg, sd, mesh=(cuda_device, cuda_device))
-    assert len(mesh._replicas) == 2 and mesh._replicas[0] is not mesh._replicas[1]
+    models = [p.fn.model for p in mesh.programs]
+    assert len(models) == 2 and models[0] is not models[1]
     det, masks = single._fetch(single.dispatch(images))
     before = NMS_KERNEL.launches
     pending = mesh.dispatch(images)
@@ -510,14 +511,15 @@ def eager_outputs(det, images, replica=0):
     from sln_amodal_tpu_torch.utils.image import pil_molded
 
     size = det.config.image_size
-    dev = det._mean[replica].device
-    x = torch.from_numpy(pil_molded(images, size)).to(dev).to(torch.float32) - det._mean[replica]
-    return det._replicas[replica].infer_detect_only(
+    program = det.programs[replica].fn
+    dev = program.mean.device
+    x = torch.from_numpy(pil_molded(images, size)).to(dev).to(torch.float32) - program.mean
+    return program.model.infer_detect_only(
         x, torch.tensor([(0, 0, size, size)] * len(images), dtype=torch.float32, device=dev))
 
 
 def assert_bit_equal(got, want):
-    assert type(got) is type(want)
+    assert got._fields == want._fields
     for name, g, w in zip(want._fields, got, want):
         assert g.dtype == w.dtype and torch.equal(g, w), name
 
@@ -530,7 +532,7 @@ def test_graphed_detect_is_bit_equal_to_eager(cuda_device, dtype):
     det = graph_detector(cuda_device, dtype)
     for seed in (0, 1, 2, 3):
         images = seeded_images(seed)
-        got = det.dispatch(images).out
+        got = det.dispatch(images).out[0]
         assert_bit_equal(got, eager_outputs(det, images))
         assert det.programs[0].captures == 1
     assert (got.det_valid.sum() > 0).item()
@@ -565,7 +567,7 @@ def test_graphed_mesh_detector_card_listed_twice(cuda_device):
     for i, out in enumerate(pending.out):
         block = images[2 * i:2 * i + 2]
         assert_bit_equal(out, eager_outputs(mesh, block, replica=i))
-        assert_bit_equal(out, single.dispatch(block).out)
+        assert_bit_equal(out, single.dispatch(block).out[0])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -845,7 +847,7 @@ def test_graphed_swin_detect_is_bit_equal_to_eager(cuda_device, dtype):
     before = WINDOW_ATTENTION_KERNEL.launches
     for seed in (0, 1, 2):
         images = seeded_images(seed)
-        got = det.dispatch(images).out
+        got = det.dispatch(images).out[0]
         assert WINDOW_ATTENTION_KERNEL.launches == before + 48 + 24 * seed
         assert_bit_equal(got, eager_outputs(det, images))
         assert det.programs[0].captures == 1
@@ -913,7 +915,7 @@ def test_graphed_detect_on_off_size_frames_is_eager_on_pil_frames(cuda_device):
         images = [rng.randint(0, 256, (h, w, 3), np.uint8) for h, w in sizes]
         profiling.clear()
         before = RESIZE_KERNEL.launches
-        got = det.dispatch(images).out
+        got = det.dispatch(images).out[0]
         assert RESIZE_KERNEL.launches == before + 1
         (span,) = [s for s in profiling.spans() if s.name == "detector.resize"]
         assert span.counts == {"images": 2, "launches": 1}

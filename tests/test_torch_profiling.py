@@ -384,6 +384,56 @@ def test_outputs_identical_with_recording_on_and_off(detector, dataset):
     assert on[2] == off[2] and len(on[2]) > 0
 
 
+def test_the_benchmarks_seams_are_called_as_it_wraps_them(biased_template, dataset,
+                                                          monkeypatch):
+    """What ``h100bench`` does to the program, here on the 64² config: it
+    replaces ``_fetch`` on the instance (the judge's captured outputs, every
+    row of each batch) and wraps ``image_utils.unmold_detections``,
+    ``dispatch``, ``cli.train.load_batch``, ``coco_results`` and
+    ``build_coco_results_crops`` by attribute (its span metrics). Each
+    wrapper is called as often as the work it times."""
+    from sln_amodal_tpu_torch.utils import image as image_utils
+
+    det = Detector(Config(**CFG), biased_template, device="cpu")
+    calls = collections.Counter()
+    fetched = []
+
+    def wrap(owner, attr):
+        inner = getattr(owner, attr)
+
+        def wrapped(*args, **kwargs):
+            calls[attr] += 1
+            return inner(*args, **kwargs)
+
+        monkeypatch.setattr(owner, attr, wrapped)
+
+    fetch = det._fetch
+
+    def kept(pending):
+        detections, masks = fetch(pending)
+        fetched.append((len(pending.images), detections.copy(), masks.copy()))
+        return detections, masks
+
+    monkeypatch.setattr(det, "_fetch", kept)
+    wrap(image_utils, "unmold_detections")
+    wrap(det, "dispatch")
+    for attr in ("load_batch", "coco_results", "build_coco_results_crops"):
+        wrap(port_train, attr)
+
+    images = [dataset.load_image(i) for i in range(3)]
+    assert len(det.detect(images)) == 3
+    results = port_train.predict(det, dataset, [0, 1, 2], 2, progress=False)
+    assert results
+    assert calls == {"dispatch": 3, "unmold_detections": 3, "load_batch": 2,
+                     "coco_results": 2, "build_coco_results_crops": 3}
+    # every row of each batch: the detect's 3, predict's 2 and 2 (its last
+    # batch of one image padded to 2 by load_batch)
+    d, m2 = CFG["detection_max_instances"], 2 * CFG["mask_pool_size"]
+    assert [(n, dets.shape, masks.shape[:4]) for n, dets, masks in fetched] == [
+        (3, (3, d, 6), (3, d, m2, m2)), (2, (2, d, 6), (2, d, m2, m2)),
+        (2, (2, d, 6), (2, d, m2, m2))]
+
+
 def test_evaluate_trace_dir_writes_a_trace(biased_template, tmp_path, monkeypatch):
     """``evaluate --trace_dir`` on the CPU: a trace that holds the kernels'
     custom ops and the program's spans, ``spans.json`` beside it, and the

@@ -106,6 +106,57 @@ def test_partial_batch_is_padded(artifact, direct):
     assert len(served.collect_crops(served.dispatch(one))) == 1
 
 
+def stub_detector(devices, batch):
+    """A ``Detector`` through the initialiser both constructors end in,
+    on a stand-in program per device whose detections carry each row's
+    frame value (column 5) and record the rows it was given: the pad rule
+    with no model and no export. ``batch`` None is ``Detector``'s rule,
+    an int a served detector's."""
+    calls = []
+
+    def program(images_u8, windows):
+        calls.append(images_u8.shape[0])
+        detections = torch.zeros((images_u8.shape[0], 2, 6), dtype=torch.float64)
+        detections[:, 0, 5] = images_u8[:, 0, 0, 0].to(torch.float64)
+        return (detections, detections[..., 4] > 0,
+                torch.zeros((images_u8.shape[0], 2, 2, 2, 2)))
+
+    det = Detector.__new__(Detector)
+    det._setup(Config(image_size=8), [torch.device("cpu")] * devices, [program] * devices,
+               True, ("detections", "det_valid", "masks"), batch=batch,
+               mesh=("cpu",) * devices if devices > 1 else None)
+    return det, calls
+
+
+@pytest.mark.parametrize("devices,batch,n,rows", [
+    (1, None, 3, 3), (2, None, 1, 2), (2, None, 3, 4), (2, None, 4, 4),
+    (1, 2, 1, 2), (1, 2, 2, 2), (2, 4, 1, 4), (2, 4, 3, 4)])
+def test_pad_rule_repeats_the_last_table_row(devices, batch, n, rows):
+    """``dispatch`` pads a request of ``n`` to ``rows`` (the fixed batch,
+    else the next multiple of the devices) by repeating its last image's
+    table row: a device uploads a frame once however many of its rows
+    repeat it, the resize makes every row, each device gets an even block,
+    ``_fetch`` gives every row and ``collect`` only the real images."""
+    from sln_amodal_tpu_torch.utils import profiling
+
+    det, calls = stub_detector(devices, batch)
+    request = [np.full((8, 8, 3), 10 * (i + 1), np.uint8) for i in range(n)]
+    profiling.clear()
+    pending = det.dispatch(request)
+    assert len(pending.out) == devices and calls == [rows // devices] * devices
+    detections, masks = det._fetch(pending)
+    assert detections.shape[0] == masks.shape[0] == len(pending.windows) == rows
+    assert list(detections[:, 0, 5]) == [10 * (i + 1) for i in range(n)] + [10 * n] * (rows - n)
+    spans = {s.name: s for s in profiling.spans()}
+    # each device's block uploads each of its distinct frames once
+    per = rows // devices
+    frames = sum(len({min(r, n - 1) for r in range(i * per, (i + 1) * per)})
+                 for i in range(devices))
+    assert spans["detector.upload"].counts == {"bytes": frames * 8 * 8 * 3 + rows * 4 * 4}
+    assert spans["detector.resize"].counts["images"] == rows
+    assert len(det.collect(pending)) == n
+
+
 def test_oversize_batch_is_refused(artifact):
     _, served = artifact
     with pytest.raises(ValueError, match="artifact batch"):
@@ -172,21 +223,30 @@ def test_full_contract_global_label_matches_jax(weights, tmp_path):
                                rtol=1e-6, atol=1e-4)
 
 
-def test_mesh_artifact_matches_single_device(weights, tmp_path, direct):
-    """A mesh of (cpu, cpu) at batch 4: the per-replica program at batch 2,
-    a ragged request of 3 padded to 4 and split in two blocks, equal to the
-    ``Detector`` without a mesh."""
-    out = str(tmp_path / "mesh")
+@pytest.fixture(scope="module")
+def mesh_artifact(weights, tmp_path_factory):
+    """(manifest, loaded ServingDetector) of the batch-4 artifact over a
+    CPU mesh of 2, the per-replica program at batch 2."""
+    out = str(tmp_path_factory.mktemp("mesh"))
     export_detector(Config(**CFG), weights[1], out, batch=4, mesh=("cpu", "cpu"))
     with open(os.path.join(out, "manifest.json")) as f:
         manifest = json.load(f)
-    assert (manifest["mesh_size"], manifest["batch"]) == (2, 4)
     served = ServingDetector.load(out)
     shutil.rmtree(out)
+    return manifest, served
+
+
+@pytest.mark.parametrize("n", [1, 3, 4])
+def test_mesh_artifact_matches_single_device(mesh_artifact, direct, n):
+    """A mesh of (cpu, cpu) at batch 4: the per-replica program at batch 2,
+    a request of ``n`` padded to 4 and split in two blocks, equal to the
+    ``Detector`` without a mesh."""
+    manifest, served = mesh_artifact
+    assert (manifest["mesh_size"], manifest["batch"]) == (2, 4)
     assert served.mesh == (torch.device("cpu"), torch.device("cpu"))
-    batch = images(3, seed=7)
+    batch = images(n, seed=7)
     got = served.detect(batch)
-    assert len(got) == 3 and sum(len(r["scores"]) for r in got) > 0
+    assert len(got) == n and sum(len(r["scores"]) for r in got) > 0
     assert_same(got, direct.detect(batch))
     with pytest.raises(ValueError, match="artifact batch"):
         served.detect(images(5))

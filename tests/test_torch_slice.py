@@ -120,12 +120,12 @@ def test_cpu_detector_never_captures(detections, monkeypatch):
         size = port.config.image_size
         molded = infer.image_utils.pil_molded(images, size)
         eager = port.model.infer_detect_only(
-            torch.from_numpy(molded).to(torch.float32) - port._mean[0],
+            torch.from_numpy(molded).to(torch.float32) - port.programs[0].fn.mean,
             torch.tensor([(0, 0, size, size)] * len(images), dtype=torch.float32))
     finally:
         torch.set_num_threads(threads)
     assert [p.captures for p in port.programs] == [0] and port.programs[0].keys() == []
-    assert all(torch.equal(a, b) for a, b in zip(pending.out, eager))
+    assert all(torch.equal(a, b) for a, b in zip(pending.out[0], eager))
     for g, o, r in zip(got, out, ref):
         for key in ("rois", "class_ids", "scores", "masks"):
             np.testing.assert_array_equal(g[key], o[key])
