@@ -17,15 +17,21 @@ spans (``utils/profiling.py``) carry that id: ``detector.dispatch`` with
 windows), ``detector.resize`` (the op's launch: ``images``, ``launches`` of
 its kernel) and ``detector.replay`` inside it,
 and ``detector.collect`` with ``detector.wait`` and one
-``detector.unmold`` per image. ``detector.wait`` is the host blocked on the
-card: the outputs' copy to the host waits for all the work queued on the
-launching stream (in a pipelined loop, the next batch's too), then copies.
+``detector.unmold`` per image.
+
+On a card, ``dispatch`` queues each device's copy of the fetched outputs
+into fresh page-locked host tensors right after that device's replay, on
+the same stream, and records an event behind it. ``detector.wait`` is the
+host blocked on those events: it waits for the batch's own replay and
+copy, never for work queued after them (in a pipelined loop, the next
+batch's graph). Its count ``ready`` is 1 where every copy had landed as
+the wait began, as it always has on the CPU.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,12 +47,15 @@ from .utils import profiling
 
 class PendingDetect(NamedTuple):
     """An in-flight detect batch: host inputs, the list of each device's
-    outputs (pad rows included) and the dispatch's request id."""
+    outputs (pad rows included), the dispatch's request id and the fetched
+    fields' host copies (``Detector._copy_to_host``; None: ``_fetch``
+    copies them)."""
 
     images: List[np.ndarray]
     windows: np.ndarray
     out: List[Any]
     request: Optional[int] = None
+    host: Optional[Tuple[Dict[str, torch.Tensor], List[Any]]] = None
 
 
 def _frame_blocks(packed: np.ndarray, table: np.ndarray, windows: np.ndarray, devices):
@@ -188,22 +197,48 @@ class Detector:
             with profiling.span("detector.replay"):
                 out = [self._outputs(*program(self._key, f, block[2]))
                        for program, f, block in zip(self.programs, frames, blocks)]
-            return PendingDetect(images, windows, out, request)
+            return PendingDetect(images, windows, out, request, self._copy_to_host(out))
+
+    def _copy_to_host(self, out: List[Any]) -> Tuple[Dict[str, torch.Tensor], List[Any]]:
+        """The fields ``_fetch`` returns, each as one host tensor of every
+        row, and one event a device that marks the end of its copies. On a
+        card the tensors are fresh page-locked ones (results keep views of
+        them) and each device copies its row block into its slice without
+        blocking, on the stream its replay ran on: behind that replay and
+        ahead of later work. On the CPU the outputs as they are (a mesh's
+        blocks joined) and no events."""
+        fields = ("detections", "masks") + (() if self.detect_only else ("global_label",))
+        devices = [o.detections.device for o in out]
+        if devices[0].type != "cuda":
+            # one device: its tensor as it is, no copy
+            return {f: torch.cat([getattr(o, f) for o in out]) if len(out) > 1
+                    else getattr(out[0], f) for f in fields}, []
+        host = {}
+        for f in fields:
+            blocks = [getattr(o, f) for o in out]
+            host[f] = torch.empty((sum(len(b) for b in blocks),) + tuple(blocks[0].shape[1:]),
+                                  dtype=blocks[0].dtype, pin_memory=True)
+            for rows, block in zip(host[f].split([len(b) for b in blocks]), blocks):
+                rows.copy_(block, non_blocking=True)
+        events = [torch.cuda.Event() for _ in devices]
+        for event, dev in zip(events, devices):
+            event.record(torch.cuda.current_stream(dev))
+        return host, events
 
     def _fetch(self, pending: PendingDetect):
         """(detections, masks) as host arrays of every row, pad rows
         included; the real images' GLM global label to
         ``last_global_label``."""
-        def host(field):
-            arrays = [getattr(o, field).cpu().numpy() for o in pending.out]
-            # one device: its array as it is, no copy
-            return arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
-
         with profiling.span("detector.wait") as span:
+            host, copied = pending.host or self._copy_to_host(pending.out)
+            ready = all(event.query() for event in copied)
+            for event in copied:
+                event.synchronize()
+            arrays = {f: t.numpy() for f, t in host.items()}
             if not self.detect_only:
-                self.last_global_label = host("global_label")[:len(pending.images)]
-            detections, masks = host("detections"), host("masks")
-            span.count(bytes=detections.nbytes + masks.nbytes)
+                self.last_global_label = arrays["global_label"][:len(pending.images)]
+            detections, masks = arrays["detections"], arrays["masks"]
+            span.count(bytes=detections.nbytes + masks.nbytes, ready=int(ready))
         return detections, masks
 
     def _collect(self, pending: PendingDetect, unmold, fields) -> List[Dict[str, Any]]:

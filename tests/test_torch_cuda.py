@@ -668,6 +668,53 @@ def test_graphed_dispatch_spans(cuda_device):
                 np.testing.assert_array_equal(g[key], w[key])
 
 
+SLEEP_CYCLES = 200_000_000    # ~100 ms of the stream at the H100's 1.7-2.0 GHz
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_collect_returns_while_the_next_batch_runs(cuda_device, replicas):
+    """Dispatch A and let it finish; dispatch B and keep the stream busy
+    after it (``torch.cuda._sleep``): collecting A returns while the
+    stream still runs, its ``detector.wait`` counts ``ready`` 1, and its
+    arrays equal a synchronous copy of the same replay bit for bit. They
+    stay so after B is collected, in host memory of their own. Two
+    replicas on the one card copy into one host array of all rows, each
+    block equal to the one-replica ``Detector`` on that block."""
+    from sln_amodal_tpu_torch.utils import profiling
+
+    mesh = (cuda_device,) * replicas if replicas > 1 else None
+    det = graph_detector(cuda_device, "bfloat16", mesh=mesh)
+    a, b = seeded_images(8, 2 * replicas), seeded_images(9, 2 * replicas)
+    det.detect(b)                       # the capture
+    pending_a = det.dispatch(a)
+    torch.cuda.synchronize()
+    fields = ("detections", "masks")
+    want = [np.concatenate([getattr(o, f).cpu().numpy() for o in pending_a.out]) for f in fields]
+    pending_b = det.dispatch(b)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    profiling.clear()
+    results = det.collect(pending_a)
+    assert not torch.cuda.current_stream(cuda_device).query()
+    (wait,) = [s for s in profiling.spans() if s.name == "detector.wait"]
+    assert wait.counts["ready"] == 1
+    assert len(results) == len(a)
+    got = det._fetch(pending_a)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    det.collect(pending_b)
+    other = det._fetch(pending_b)
+    for g, w, o in zip(got, want, other):
+        assert np.array_equal(g, w) and not np.shares_memory(g, o)
+    assert not np.array_equal(got[1], other[1])
+    torch.cuda.synchronize()
+    if replicas > 1:
+        single = graph_detector(cuda_device, "bfloat16")
+        for i in range(replicas):
+            rows = slice(2 * i, 2 * i + 2)
+            for g, s in zip(got, single._fetch(single.dispatch(a[rows]))):
+                np.testing.assert_array_equal(g[rows], s)
+
+
 # ------------------------------------------------- the captured train step --
 
 TRAIN = dict(SMALL, post_nms_rois_training=64, train_rois_per_image=16, max_gt_instances=8,

@@ -297,6 +297,26 @@ def test_dispatch_numbers_requests_and_pending_defaults(detector, dataset):
     assert collect.request is None
 
 
+def test_every_wait_counts_ready_on_the_cpu(detector, dataset):
+    """On the CPU the outputs are on the host when the batch is dispatched:
+    a dispatch's host copies are its outputs as they are, and every
+    ``detector.wait`` (``detect``, a hand-built ``PendingDetect``, each batch
+    of ``predict``) counts ``ready`` 1."""
+    images = [dataset.load_image(0), dataset.load_image(1)]
+    pending = detector.dispatch(images)
+    host, events = pending.host
+    assert events == [] and set(host) == {"detections", "masks"}
+    assert host["detections"] is pending.out[0].detections
+    assert host["masks"] is pending.out[0].masks
+    detector.collect(pending)
+    detector.detect(images[:1])
+    detector.collect(PendingDetect(pending.images, pending.windows, pending.out))
+    port_train.predict(detector, dataset, [0, 1, 2], 2, progress=False)
+    waits = by_name(profiling.spans(), "detector.wait")
+    assert len(waits) == 5
+    assert all(w.counts["ready"] == 1 and w.counts["bytes"] > 0 for w in waits)
+
+
 def test_mesh_dispatch_records_one_upload_and_replay(biased_template, dataset):
     det = Detector(Config(**CFG), biased_template, device="cpu", mesh=["cpu", "cpu"])
     images = [dataset.load_image(i) for i in range(3)]     # padded to 4 rows
